@@ -1,40 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--diag]
 
-The main path is the transient flow solve: the port's IPCSSolver, fused f32
-path, 5000 steps on each of the two airfoil packs in checkpoints/.  Every
-dense operator apply goes through the hand-written matvec kernel
-(meshdqn_tpu_torch/csrc/matvec.cu), which is built from source at first use.
+Two paths, each driven through IPCSSolver, the entry point a user calls:
 
-Phases, one JSON line each (any failure raises and the script exits non-zero
-without the final line):
+* the fused f32 solve, 5000 steps on each of the two airfoil packs in
+  checkpoints/, every dense apply through the matvec kernel
+  (meshdqn_tpu_torch/csrc/matvec.cu);
+* the large-mesh CG solve at the production config (f32, banded layout,
+  block-Jacobi PCG, 6 / 5 iterations), 5000 steps on the finest generated
+  mesh of each airfoil (meshdqn_tpu_torch/data/*.npz), every sparse product
+  through the banded kernel (csrc/banded.cu) or the ELL kernel
+  (csrc/ell.cu).
 
-  device   nvidia-smi's name and power limit, the device name, and the
-           device-memory and f32 peaks used for the bounds (null if unknown)
-  build    nvcc of the kernel source
-  kernels  each kernel at each main-path shape of both packs: held against
-           its plain torch version (||y - plain|| / ||plain|| within
-           2 sqrt(N) 2^-24, while the plain version on TF32- and
-           bf16-rounded inputs, and the dual form without x_lo, must fall
-           outside it), run twice for identical bits, and timed (CUDA
-           events, median of 25, L2 flushed before each launch) beside its
-           bound, the plain version and one torch.matmul call
-  solve    per pack: set-up time, a 100-step warm-up from a random state,
-           then solve(5000, save_steps=1000) from rest with the launch
-           counters zeroed; drag/lift against the pack's f64 values (final
-           values within 1e-3 relative, asserted), ms per step, achieved
-           operator bandwidth
-  profile  50 steps unprofiled, then under torch.profiler: device busy share
-           and time by kernel
-  f64      per pack: the same 5000 steps in f64 through the plain products,
-           snapshot by snapshot beside the pack's values and the f32 run
+The kernels are built from source at first use.  Phases, one JSON line each
+(any failure raises and the script exits non-zero without the final line):
+
+  device     nvidia-smi's name and power limit, the device name, and the
+             device-memory, f32 and f64 peaks used for the bounds
+  build      nvcc of the three kernel sources, started together
+  kernels    each kernel at each shape its paths give it (the CG kernels
+             on both finest meshes): held against its plain
+             torch version (||y - plain|| / ||plain|| within
+             ops.matvec.gap_tolerance of the row's terms), while the plain
+             version on TF32- and bf16-rounded inputs (and the dual form
+             without x_lo) must fall outside it; run twice for identical
+             bits; timed (CUDA events, median of 25, L2 evicted before each
+             launch) beside its bound, the plain version and one library
+             call (torch.matmul, or a torch.sparse CSR product)
+  solve      per pack: the fused f32 solve from rest with the launch
+             counters zeroed; drag/lift within 1e-3 of the pack's f64 values
+  profile    50 steps of a path under torch.profiler: device busy share
+             and time by kernel (fused, then CG)
+  f64        per pack: the fused solve in f64 through the plain products
+  cg_solve   per finest mesh: the production CG solve, 5000 steps from rest
+             with the counters zeroed (18 banded and 2 ELL launches a step,
+             asserted, and no plain-version call); final drag and lift within
+             1e-3 of the f64 oracle row of docs/examples/
+             gen_finest_f64cg_oracle.csv picked by the mesh's sha8
+  cg_oracle  per finest mesh: the oracle's own config (f64, ELL, Jacobi,
+             25 / 20 iterations) on the card: 54 ELL launches a step,
+             final drag and lift within 1.5e-7 of the CSV's printed digits
+  cg_diag    only with --diag, printed only: the production config in f64
+             (banded f64 blocks), 5000 steps, and in the ELL layout in f32,
+             500 steps
 
 then the kernels summary line, nvidia-smi's line, and the result line.
 """
+import argparse
+import csv
 import json
 import os
 import statistics
@@ -49,12 +66,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKS = ("ys930", "ah93w145")
 STEPS, SAVE = 5000, 1000
 GATE = 1e-3  # drag/lift relative error against the f64 oracle
-# Device-memory rate (bytes/s) and f32 non-tensor-core rate (flop/s) by
-# card, from NVIDIA's data sheets.  Unknown cards get no bound.
+AIRFOILS = ("ys930", "ah93w145")  # the finest generated meshes, CG path
+ORACLE_CSV = os.path.join(REPO, "docs", "examples", "gen_finest_f64cg_oracle.csv")
+ORACLE_ABS = 1.5e-7  # the oracle CSV prints drag and lift to 7 decimals
+# The production CG config (bench.py:253-260 of the JAX package).
+PRODUCTION = dict(precision="f32", fused=False, method="cg", cg_chunk=25,
+                  cg_iters_u=6, cg_iters_m=5, cg_precond="block",
+                  cg_block_size=128)
+# The oracle's own config (scripts/make_fine_oracle.py:91).
+ORACLE = dict(precision="f64", method="cg", cg_layout="ell")
+# The JAX package's f32 production config on the TPU against the same f64
+# rows, final drag / lift relative error (docs/FINE_ORACLE_RECONCILIATION.md);
+# printed beside the port's for comparison only.
+JAX_TPU_F32 = {"ys930": [3.8e-5, 9.8e-4], "ah93w145": [4.8e-5, 2.1e-4]}
+# Device-memory rate (bytes/s), f32 and f64 non-tensor-core rates (flop/s)
+# by card, from NVIDIA's data sheets.  Unknown cards get no bound.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51.2e12),
-    "H100 NVL": (3.9e12, 60.0e12),
-    "H100 80GB HBM3": (3.35e12, 66.9e12),  # the SXM part
+    "H100 PCIe": (2.0e12, 51.2e12, 25.6e12),
+    "H100 NVL": (3.9e12, 60.0e12, 30.0e12),
+    "H100 80GB HBM3": (3.35e12, 66.9e12, 33.5e12),  # the SXM part
 }
 
 
@@ -74,7 +104,7 @@ def peaks(name: str):
     for key, val in PEAKS.items():
         if key in name:
             return val
-    return None, None
+    return None, None, None
 
 
 def time_ms(fn, flush, reps=25):
@@ -210,7 +240,6 @@ def check_kernels(cuda, meshes, mem_peak, flop_peak, flush):
 
 
 def solve_pack(cuda, name, mesh, z, meta, mem_peak):
-    from meshdqn_tpu_torch.ops import matvec as mv
     from meshdqn_tpu_torch.solver import FlowState, IPCSConfig, IPCSSolver
 
     cfg = IPCSConfig(mu=meta["mu"], rho=meta["rho"], dt=meta["dt"], precision="f32")
@@ -230,8 +259,7 @@ def solve_pack(cuda, name, mesh, z, meta, mem_peak):
     solver.evolve(warm, 100)
     torch.cuda.synchronize()
 
-    mv.matvec.launches = 0
-    mv.matvec_dual.launches = 0
+    zero_counters()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -240,10 +268,11 @@ def solve_pack(cuda, name, mesh, z, meta, mem_peak):
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = {"matvec": mv.matvec.launches, "matvec_dual": mv.matvec_dual.launches}
-    if launches["matvec"] != 7 * STEPS:
-        raise AssertionError(f"matvec launched {launches['matvec']} times, "
-                             f"expected {7 * STEPS}")
+    launches = read_counters()
+    expect = {"matvec": 7 * STEPS, "matvec_dual": 0, "banded_matmat": 0,
+              "ell_matmat": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches}, expected {expect}")
 
     st = out["state"]
     if st.u.shape != (solver.ndofs_u,) or st.p.shape != (solver.ndofs_p,):
@@ -327,7 +356,7 @@ def solve_f64(cuda, name, mesh, z, meta, f32_row):
                              f"{lerr[-1]:.3g} above {GATE}")
 
 
-def profile_steps(solver, state, n=50):
+def profile_steps(solver, state, path, n=50):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,6 +373,7 @@ def profile_steps(solver, state, n=50):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    kernels = 0
     for ev in prof.key_averages():
         # Device-side events only: a CPU op also carries the device time of
         # the kernels it launched, which would count them twice.
@@ -354,21 +384,395 @@ def profile_steps(solver, state, n=50):
             t = ev.self_cuda_time_total
         if t > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
+            kernels += ev.count
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     # device_busy_share is measured in the profiled window, where the
     # profiler also slows the host; busy over the unprofiled wall time of
     # the same steps, just before, is an estimate across two windows.
     unprofiled_ms = start.elapsed_time(end)
-    emit({"phase": "profile", "steps": n, "wall_ms_per_step": wall_ms / n,
+    emit({"phase": "profile", "path": path, "steps": n, "wall_ms_per_step": wall_ms / n,
           "unprofiled_wall_ms_per_step": unprofiled_ms / n,
           "device_busy_ms_per_step": busy / n if busy else None,
+          "device_ops_per_step": kernels / n,
           "device_busy_share": busy / wall_ms if busy else None,
           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
           "top_ms_per_step": {k[:80]: v / n for k, v in top}})
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The large-mesh CG path
+# ---------------------------------------------------------------------------
+
+
+def load_finest(name):
+    """The finest generated mesh of `name` and its f64 oracle row, picked by
+    the mesh's sha8 (the MESH_SHA8 column)."""
+    from meshdqn_tpu_torch.mesh import load_npz
+    from meshdqn_tpu_torch.mesh.xdmf import DATA_DIR
+
+    mesh, sha8 = load_npz(DATA_DIR / f"{name}_0.05000_gen.npz")
+    with open(ORACLE_CSV) as f:
+        rows = [r for r in csv.DictReader(f)
+                if r["MESH_SHA8"] == sha8 and r["SOLVER"].startswith("f64")]
+    if not rows or rows[0]["AIRFOIL"] != name:
+        raise AssertionError(f"{name}: no f64 oracle row for mesh sha8 {sha8}")
+    if int(rows[0]["NUM_COORDS"]) != mesh.num_vertices:
+        raise AssertionError(f"{name}: the oracle row's vertex count differs")
+    return mesh, {"sha8": sha8, "drag": float(rows[0]["DRAG"]),
+                  "lift": float(rows[0]["LIFT"])}
+
+
+def zero_counters():
+    from meshdqn_tpu_torch.ops import banded, matvec, sparse
+
+    for fn in (matvec.matvec, matvec.matvec_dual, banded.banded_matmat,
+               sparse.ell_matmat):
+        fn.launches = 0
+    banded.banded_matmat_reference.calls = 0
+    sparse.ell_matmat_reference.calls = 0
+
+
+def read_counters():
+    from meshdqn_tpu_torch.ops import banded, matvec, sparse
+
+    return {"matvec": matvec.matvec.launches,
+            "matvec_dual": matvec.matvec_dual.launches,
+            "banded_matmat": banded.banded_matmat.launches,
+            "ell_matmat": sparse.ell_matmat.launches,
+            "banded_plain_calls": banded.banded_matmat_reference.calls,
+            "ell_plain_calls": sparse.ell_matmat_reference.calls}
+
+
+def csr_tensor(A, device, dtype):
+    A = A.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr.astype(np.int64)),
+        torch.as_tensor(A.indices.astype(np.int64)),
+        torch.as_tensor(A.data), size=A.shape, dtype=dtype, device=device)
+
+
+def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
+                      stored_bytes, entries, terms, pk, flush, **extra):
+    """One sparse kernel at one shape: gap to the plain version, controls,
+    repeated bits, times and bounds.  `inputs` are the plain version's
+    floating operands (matrix storage and X), which the controls round;
+    `entries` the stored matrix entries, each one multiply-add per column of
+    X; `terms` the terms of one row's sum."""
+    from meshdqn_tpu_torch.ops import matvec as mv
+
+    mem_peak, f32_peak, f64_peak = pk
+    X = inputs[-1]
+    xdt = X.dtype
+    y = kernel_fn()
+    torch.cuda.synchronize()
+    if not torch.equal(y, kernel_fn()):
+        raise AssertionError(f"{kernel} {op}: bits differ between runs")
+    yp = plain_fn(*inputs)
+    tol = mv.gap_tolerance(terms, xdt)
+    gap = mv.relative_gap(y, yp)
+    if not gap <= tol:
+        raise AssertionError(f"{kernel} {op}: ||y - plain|| / ||plain|| = {gap:.3g} "
+                             f"above {tol:.3g}")
+    controls = {
+        f"control_{name}_gap": mv.relative_gap(plain_fn(*(
+            mv.round_mantissa(t.float() if t.dtype == torch.bfloat16 else t, bits)
+            for t in inputs)), yp)
+        for name, bits in (("tf32", 10), ("bf16", 7))
+    }
+    if not min(controls.values()) > tol:
+        raise AssertionError(f"{kernel} {op}: a control passes the check: {controls}")
+    Acsr = csr_tensor(A, cuda, xdt)
+    X2 = X.view(X.shape[0], -1)
+    esize = inputs[0].element_size()
+    xy_bytes = (A.shape[0] + A.shape[1]) * m * X.element_size()
+    flops = 2 * entries * m
+    peak = f64_peak if xdt == torch.float64 else f32_peak
+    t_bytes = (stored_bytes + xy_bytes) / mem_peak * 1e3 if mem_peak else None
+    t_ops = flops / peak * 1e3 if peak else None
+    row = {
+        "phase": "kernels", "kernel": kernel, "op": op, "shape": list(A.shape),
+        "m": m, "dtype": str(inputs[0].dtype).replace("torch.", ""), **extra,
+        "nnz": int(A.nnz), "stored_MB": stored_bytes / 1e6,
+        "rel_gap": gap, "tol": tol, **controls,
+        "max_abs_err": (y - yp).abs().max().item(),
+        "kernel_ms": time_ms(kernel_fn, flush),
+        "plain_ms": time_ms(lambda: plain_fn(*inputs), flush),
+        "library_ms": time_ms(lambda: Acsr @ X2, flush),
+        "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
+        "bound_by": None if t_bytes is None else
+        ("bytes" if t_bytes >= t_ops else "operations"),
+        "nnz_bound_ms": None if not mem_peak else
+        (A.nnz * (esize + 4) + (A.shape[0] + 1) * 4 + xy_bytes) / mem_peak * 1e3,
+    }
+    if row["bound_ms"]:
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    emit(row)
+    return row
+
+
+# The 18 banded applies of one production step (6 / 5 PCG iterations, one
+# product each plus the initial residual) and the 2 ELL ones: (op, m, count).
+STEP_BANDED = [("A1bc", 1, 7), ("R1", 1, 1), ("P1m_s", 1, 1), ("BT_s", 1, 1),
+               ("G_s", 1, 1), ("Ms", 2, 1), ("A3bc_s", 2, 6)]
+STEP_ELL = [("Kp", 1, 1), ("A2bc", 1, 1)]
+# The nine operators of the ELL layout and the column count each is applied
+# to: every apply of the f64 oracle config, and of the f32 ELL config.
+ELL_OPS = [("A1bc", 1), ("A3bc_s", 2), ("A2bc", 1), ("Kp", 1), ("R1", 1),
+           ("P1m", 1), ("BT", 1), ("M", 1), ("G", 1)]
+
+
+def check_cg_kernels(cuda, meshes, pk, flush):
+    """banded_matmat and ell_matmat at every shape the CG paths give them on
+    each finest mesh: the banded operators in both window layouts with m = 1
+    and 2 (A1bc also with bf16 blocks), and the nine ELL operators in f32 and
+    f64.  Returns the summary of each kernel over one ys930 production step."""
+    from meshdqn_tpu_torch.ops.banded import BandedMatrix, banded_matmat_reference
+    from meshdqn_tpu_torch.ops.sparse import EllMatrix, ell_matmat_reference
+    from meshdqn_tpu_torch.solver import IPCSConfig
+    from meshdqn_tpu_torch.solver.ipcs import cg_matrices
+
+    rows = {"banded_matmat": [], "ell_matmat": []}
+    step = {}
+
+    def x_for(A, m, dtype, seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        shape = (A.shape[1],) if m == 1 else (A.shape[1], m)
+        return torch.randn(shape, device=cuda, dtype=dtype, generator=g)
+
+    def banded_case(airfoil, op, A, bm, m, aligned):
+        dtype = bm.blocks.dtype
+        xdt = torch.float64 if dtype == torch.float64 else torch.float32
+        X = x_for(A, m, xdt, A.shape[0] + m)
+        kw = dict(pad=bm.pad, g=bm.g, aligned=aligned, n_rows=A.shape[0])
+        B, R, W = bm.blocks.shape
+        row = check_sparse_case(
+            cuda, "banded_matmat", op, A, m, lambda: bm.matmat(X),
+            lambda b, x: banded_matmat_reference(b, x, **kw), [bm.blocks, X],
+            bm.nbytes, B * R * W, W, pk, flush, airfoil=airfoil, aligned128=aligned,
+            blocks=[B, R, W], g=bm.g, pad=bm.pad)
+        rows["banded_matmat"].append(row)
+        return row
+
+    def ell_case(airfoil, op, A, m, dtype):
+        e = EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
+        X = x_for(A, m, dtype, A.shape[0] + m)
+        row = check_sparse_case(
+            cuda, "ell_matmat", op, A, m, lambda: e.matmat(X),
+            lambda v, x: ell_matmat_reference(e.cols, v, x), [e.vals, X],
+            e.nbytes, e.vals.numel(), e.cols.shape[1], pk, flush, airfoil=airfoil,
+            K=e.cols.shape[1])
+        rows["ell_matmat"].append(row)
+        return row
+
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    for airfoil, mesh in meshes.items():
+        main = airfoil == AIRFOILS[0]
+        mats = cg_matrices(mesh, IPCSConfig(**PRODUCTION))["matrices"]
+        for op, step_m, _ in STEP_BANDED:
+            for dtype in (f32, bf16) if op == "A1bc" else (f32,):
+                for aligned in (False, True):
+                    bm = BandedMatrix.from_scipy(mats[op], device=cuda, dtype=dtype,
+                                                 aligned128=aligned)
+                    for m in (1, 2):
+                        row = banded_case(airfoil, op, mats[op], bm, m, aligned)
+                        if main and dtype == f32 and not aligned and m == step_m:
+                            step["banded_matmat", op] = row
+                    del bm
+        del mats
+        ell_mats = cg_matrices(mesh, IPCSConfig(**ORACLE))["matrices"]
+        for dtype in (f32, f64):
+            for op, m in ELL_OPS:
+                row = ell_case(airfoil, op, ell_mats[op], m, dtype)
+                if main and dtype == f32 and op in ("A2bc", "Kp"):
+                    step["ell_matmat", op] = row
+        del ell_mats
+    summary = {}
+    for kname, plan in (("banded_matmat", STEP_BANDED), ("ell_matmat", STEP_ELL)):
+        tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "nnz_bound_ms")}
+        by_bytes = True
+        for op, _, count in plan:
+            r = step[kname, op]
+            for k, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                           ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
+                           ("nnz_bound_ms", "nnz_bound_ms")):
+                tot[k] = None if tot[k] is None or r[src] is None else tot[k] + count * r[src]
+            by_bytes &= r["bound_by"] == "bytes"
+        summary[kname] = dict(
+            tot, max_abs_err=max(r["max_abs_err"] for r in rows[kname]),
+            bound_by=("bytes" if by_bytes else "operations")
+            if tot["bound_ms"] is not None else None)
+    emit({"phase": "kernels", "checked": ["banded_matmat", "ell_matmat"],
+          "shapes": {k: len(v) for k, v in rows.items()}})
+    return summary
+
+
+def cg_step_bytes(dev, cfg):
+    """Bytes one CG step reads once each: (operator bytes, all bytes).
+    Operators: banded blocks and block-Jacobi inverses times their applies.
+    All: also the dense pressure inverse, the ELL operators, the convection
+    tables and the vectors."""
+    from meshdqn_tpu_torch.ops.cg import BlockJacobi
+
+    nbytes = lambda t: t.numel() * t.element_size()
+    iu, im, pr = 1 + cfg.cg_iters_u, 1 + cfg.cg_iters_m, cfg.cg_pressure_refine
+    counts = {"A1bc": iu, "A3bc_s": im, "d1inv": iu, "d3inv": im}
+    ops = 0
+    for name in ("A1bc", "A3bc_s", "R1", "P1m_s", "BT_s", "Ms", "G_s", "d1inv",
+                 "d3inv"):
+        v = getattr(dev, name)
+        b = v.nbytes if hasattr(v, "nbytes") else nbytes(
+            v.inv_blocks if isinstance(v, BlockJacobi) else v)
+        ops += counts.get(name, 1) * b
+    rest = (1 + pr) * nbytes(dev.A2inv) + dev.Kp.nbytes + pr * dev.A2bc.nbytes
+    rest += sum(nbytes(t) for t in vars(dev.conv).values() if isinstance(t, torch.Tensor))
+    rest += sum(nbytes(getattr(dev, n)) for n in ("z_u", "z_p", "t1", "t2", "t3",
+                                                   "drag_u", "drag_p", "lift_u",
+                                                   "lift_p", "vert_pos"))
+    return ops, ops + rest
+
+
+def timed_solve(solver, steps, save):
+    """solve() from rest with every counter zeroed just before; returns
+    (output, device ms/step, host ms/step, counters read just after)."""
+    zero_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = solver.solve(steps, save_steps=save)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return out, start.elapsed_time(end) / steps, host_ms, read_counters()
+
+
+def check_finite(name, solver, out):
+    st = out["state"]
+    if st.u.shape != (solver.ndofs_u,) or st.p.shape != (solver.ndofs_p,):
+        raise AssertionError(f"{name}: state has the wrong shape")
+    if not (torch.isfinite(st.u).all() and torch.isfinite(st.p).all()
+            and torch.isfinite(out["drags"]).all() and torch.isfinite(out["lifts"]).all()):
+        raise AssertionError(f"{name}: non-finite values in the solve")
+
+
+def cg_solve(cuda, name, mesh, oracle, pk):
+    """The production CG solve on the finest mesh, gated at 1e-3."""
+    from meshdqn_tpu_torch.solver import FlowState, IPCSConfig, IPCSSolver
+
+    cfg = IPCSConfig(**PRODUCTION)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = IPCSSolver(mesh, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.device.type != "cuda" or type(solver.dev).__name__ != "BandedCGOperators":
+        raise AssertionError(f"{name}: solver is {type(solver.dev).__name__} on "
+                             f"{solver.device}")
+    # Warm-up from a distinct state; solve() starts from rest and resets the
+    # PCG warm start.
+    g = torch.Generator(device=cuda).manual_seed(0)
+    solver.evolve(FlowState(
+        u=1e-3 * torch.randn(solver.ndofs_u, device=cuda, generator=g),
+        p=torch.zeros(solver.ndofs_p, device=cuda)), 25)
+    out, ms, host_ms, counts = timed_solve(solver, STEPS, SAVE)
+    expect = {"banded_matmat": 18 * STEPS, "ell_matmat": 2 * STEPS, "matvec": 0,
+              "matvec_dual": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+    check_finite(name, solver, out)
+    derr = abs(float(out["snap_drags"][-1]) / oracle["drag"] - 1)
+    lerr = abs(float(out["snap_lifts"][-1]) / oracle["lift"] - 1)
+    op_bytes, step_bytes = cg_step_bytes(solver.dev, cfg)
+    mem_peak = pk[0]
+    row = {
+        "phase": "cg_solve", "airfoil": name, "mesh_sha8": oracle["sha8"],
+        "vertices": mesh.num_vertices, "ndofs_u": solver.ndofs_u,
+        "setup_s": setup_s, "ms_per_step": ms, "host_ms_per_step": host_ms,
+        "operator_MB_per_step": op_bytes / 1e6, "step_MB": step_bytes / 1e6,
+        "achieved_GB_s": step_bytes / (ms * 1e-3) / 1e9,
+        "share_of_peak": step_bytes / (ms * 1e-3) / mem_peak if mem_peak else None,
+        "bound_ms_per_step": step_bytes / mem_peak * 1e3 if mem_peak else None,
+        "launches": counts,
+        "snap_drags": out["snap_drags"].tolist(),
+        "snap_lifts": out["snap_lifts"].tolist(),
+        "oracle": oracle, "drag_rel_err": derr, "lift_rel_err": lerr,
+        "jax_f32_tpu_rel_err": JAX_TPU_F32[name],
+    }
+    emit(row)
+    if not (derr < GATE and lerr < GATE):
+        raise AssertionError(f"{name}: final drag/lift error {derr:.3g} / "
+                             f"{lerr:.3g} above {GATE}")
+    return solver, out, row
+
+
+def cg_oracle(name, mesh, oracle):
+    """The oracle's own f64 ELL config on the card, held to the CSV."""
+    from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
+
+    cfg = IPCSConfig(**ORACLE)
+    solver = IPCSSolver(mesh, cfg)
+    out, ms, host_ms, counts = timed_solve(solver, STEPS, SAVE)
+    per_step = 2 + (1 + cfg.cg_iters_u) + 2 + cfg.cg_pressure_refine + 2 + (1 + cfg.cg_iters_m)
+    expect = {"banded_matmat": 0, "ell_matmat": per_step * STEPS, "matvec": 0,
+              "matvec_dual": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    if per_step != 54 or counts != expect:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+    check_finite(name, solver, out)
+    dd = float(out["snap_drags"][-1]) - oracle["drag"]
+    dl = float(out["snap_lifts"][-1]) - oracle["lift"]
+    emit({"phase": "cg_oracle", "airfoil": name, "ms_per_step": ms,
+          "host_ms_per_step": host_ms, "launches": counts,
+          "snap_drags": out["snap_drags"].tolist(),
+          "snap_lifts": out["snap_lifts"].tolist(), "oracle": oracle,
+          "drag_abs_diff": dd, "lift_abs_diff": dl, "limit": ORACLE_ABS})
+    if not (abs(dd) <= ORACLE_ABS and abs(dl) <= ORACLE_ABS):
+        raise AssertionError(f"{name}: f64 drag/lift differ from the oracle CSV by "
+                             f"{dd:.3g} / {dl:.3g}, above {ORACLE_ABS}")
+
+
+def cg_diag(name, mesh, oracle, f32_out, f32_ms):
+    """Printed only: the production config in f64 (banded f64 blocks), which
+    tells f32 rounding from truncated PCG, and in the ELL layout in f32."""
+    from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
+
+    solver = IPCSSolver(mesh, IPCSConfig(**{**PRODUCTION, "precision": "f64"}))
+    out, ms, _, counts = timed_solve(solver, STEPS, SAVE)
+    check_finite(name, solver, out)
+    sd, sl = out["snap_drags"], out["snap_lifts"]
+    del solver, out
+    ell = IPCSSolver(mesh, IPCSConfig(**{**PRODUCTION, "cg_layout": "ell"}))
+    n = min(500, STEPS)
+    eout, ems, ehost, ecounts = timed_solve(ell, n, n)
+    check_finite(name, ell, eout)
+    emit({
+        "phase": "cg_diag", "airfoil": name,
+        "f64_production": {
+            "ms_per_step": ms, "launches": counts,
+            "snap_drags": sd.tolist(), "snap_lifts": sl.tolist(),
+            "drag_rel_err": abs(float(sd[-1]) / oracle["drag"] - 1),
+            "lift_rel_err": abs(float(sl[-1]) / oracle["lift"] - 1),
+            "f32_drag_rel_to_f64": np.abs(f32_out["snap_drags"] / sd - 1).tolist(),
+            "f32_lift_rel_to_f64": np.abs(f32_out["snap_lifts"] / sl - 1).tolist(),
+        },
+        "ell_f32_production": {
+            "steps": n, "ms_per_step": ems, "host_ms_per_step": ehost,
+            "banded_ms_per_step": f32_ms, "launches": ecounts,
+            "final_drag_rel_to_banded": abs(
+                eout["drags"][n - 1].item() / f32_out["drags"][n - 1].item() - 1),
+            "final_lift_rel_to_banded": abs(
+                eout["lifts"][n - 1].item() / f32_out["lifts"][n - 1].item() - 1),
+        },
+    })
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--diag", action="store_true",
+                        help="also run the cg_diag phase (~2 min more)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -380,49 +784,89 @@ def main() -> int:
     cuda = torch.device("cuda", torch.cuda.current_device())
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    mem_peak, flop_peak = peaks(kind)
+    pk = peaks(kind)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "mem_peak_B_s": mem_peak,
-          "f32_peak_flop_s": flop_peak})
+          "cuda": torch.version.cuda, "mem_peak_B_s": pk[0],
+          "f32_peak_flop_s": pk[1], "f64_peak_flop_s": pk[2]})
 
+    sources = ("matvec", "banded", "ell")
     t0 = time.perf_counter()
-    build.load("matvec")
+    build.compile_all(sources)
+    for name in sources:
+        build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": ["meshdqn_tpu_torch/csrc/matvec.cu"]})
+          "sources": [f"meshdqn_tpu_torch/csrc/{n}.cu" for n in sources]})
 
     packs = {name: load_pack(name) for name in PACKS}
+    finest = {name: load_finest(name) for name in AIRFOILS}
     flush = torch.empty(64 * 2**20 // 4, device=cuda)  # > the 50 MB L2
     summary = check_kernels(cuda, {n: p[0] for n, p in packs.items()},
-                            mem_peak, flop_peak, flush)
+                            pk[0], pk[1], flush)
+    summary.update(check_cg_kernels(cuda, {n: f[0] for n, f in finest.items()},
+                                    pk, flush))
     del flush
 
-    launches = {"matvec": 0, "matvec_dual": 0}
+    # The fused path (first slice).
+    launches = {k: 0 for k in summary}
+    by_path = {k: {} for k in summary}
     rows, last = {}, None
     for name, (mesh, z, meta) in packs.items():
         solver, state, counted, rows[name] = solve_pack(cuda, name, mesh, z, meta,
-                                                        mem_peak)
-        for k in launches:
+                                                        pk[0])
+        for k in ("matvec", "matvec_dual"):
             launches[k] += counted[k]
+            by_path[k]["solve"] = by_path[k].get("solve", 0) + counted[k]
         if last is None:
             last = (solver, state)
         del solver, state
-    profile_steps(*last)
+    profile_steps(*last, path="fused")
     del last
     for name, (mesh, z, meta) in packs.items():
         solve_f64(cuda, name, mesh, z, meta, rows[name])
 
-    src = "meshdqn_tpu_torch/csrc/matvec.cu"
+    # The large-mesh CG path.
+    cg_rows = {}
+    for name, (mesh, oracle) in finest.items():
+        solver, out, row = cg_solve(cuda, name, mesh, oracle, pk)
+        cg_rows[name] = (out, row["ms_per_step"])
+        for k in ("banded_matmat", "ell_matmat"):
+            launches[k] += row["launches"][k]
+            by_path[k]["cg_solve"] = by_path[k].get("cg_solve", 0) + row["launches"][k]
+        if name == AIRFOILS[0]:
+            profile_steps(solver, out["state"], path="cg")
+        del solver, out
+    for name, (mesh, oracle) in finest.items():
+        cg_oracle(name, mesh, oracle)
+    if args.diag:
+        for name, (mesh, oracle) in finest.items():
+            cg_diag(name, mesh, oracle, *cg_rows[name])
+
+    src = {"matvec": "matvec", "matvec_dual": "matvec", "banded_matmat": "banded",
+           "ell_matmat": "ell"}
     replaces = {"matvec": "meshdqn_tpu/ops/pallas_kernels.py:124",
-                "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134"}
+                "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134",
+                "banded_matmat": "meshdqn_tpu/ops/pallas_kernels.py:250",
+                "ell_matmat": "meshdqn_tpu/ops/pallas_kernels.py:39"}
+    # The banded kernel also takes the aligned layout and bf16 blocks.
+    also = {"banded_matmat": ["meshdqn_tpu/ops/pallas_kernels.py:318",
+                              "scripts/banded_formulation_bench.py:180"]}
+    note = {"matvec": "sums over the seven applies of one ys930 fused step",
+            "matvec_dual": "sums over the seven applies of one ys930 fused step",
+            "banded_matmat": "sums over the 18 banded applies of one ys930 finest "
+                             "production CG step",
+            "ell_matmat": "sums over the 2 ELL applies of one ys930 finest "
+                          "production CG step"}
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], "on_main_path": k == "matvec",
+        {"name": k, "route": "cuda", "source": f"meshdqn_tpu_torch/csrc/{src[k]}.cu",
+         "replaces": replaces[k], "also_replaces": also.get(k, []),
+         "launches": launches[k],
+         "launches_by_path": by_path[k], "on_main_path": k != "matvec_dual",
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
          "library_ms": s["library_ms"],
-         "note": "ms, plain_ms, bound_ms and library_ms are sums over the "
-                 "seven applies of one ys930 step"}
+         **({"nnz_bound_ms": s["nnz_bound_ms"]} if "nnz_bound_ms" in s else {}),
+         "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()
     ]})
     print(smi, flush=True)

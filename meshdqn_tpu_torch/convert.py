@@ -1,17 +1,21 @@
-"""Carry composed operators across from the JAX package.
+"""Carry operators across from the JAX package.
 
-The fused solver's "weights" are its composed operators.  Given the leaves
-of a meshdqn_tpu FusedOperators as numpy arrays (the caller converts them;
-this package never imports JAX), build the port's FusedOperators so both
-steppers can run from identical operators.
+The solvers' "weights" are their operators.  Given the leaves of a
+meshdqn_tpu operator pytree as numpy arrays (the caller converts them; this
+package never imports JAX), build the port's counterpart, so both steppers
+can run from identical operators.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ops.banded import BandedMatrix
+from .ops.cg import BlockJacobi
 from .ops.convection import ConvectionKernel
+from .ops.sparse import EllMatrix
 from .solver.fused import FusedOperators
+from .solver.ipcs import BandedCGOperators, CGOperators
 
 CONV_FIELDS = ("cell_dofs", "phi", "gphys", "wdet", "ndofs")
 
@@ -30,3 +34,50 @@ def fused_operators_from_numpy(arrays: dict, conv_arrays: dict, device,
         if name != "conv"
     }
     return FusedOperators(conv=conv, **leaves)
+
+
+def _blocks(a: np.ndarray, device, dtype) -> torch.Tensor:
+    """Banded blocks keep bf16 storage (ml_dtypes' bfloat16 from JAX, widened
+    to f32 exactly on the way); other blocks take `dtype`."""
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _leaf(name: str, value, device, dtype):
+    if name == "conv":
+        return ConvectionKernel.from_arrays(
+            *(value[f] for f in CONV_FIELDS), device=device, dtype=dtype
+        )
+    if name == "vert_pos":
+        return torch.tensor(np.asarray(value, dtype=np.int64), device=device)
+    if isinstance(value, dict) and "cols" in value:
+        return EllMatrix.from_arrays(value["cols"], value["vals"], value["shape"],
+                                     device=device, dtype=dtype)
+    if isinstance(value, dict) and "blocks" in value:
+        return BandedMatrix(
+            blocks=_blocks(np.asarray(value["blocks"]), device, dtype),
+            pad=int(value["pad"]), g=int(value["g"]),
+            shape=tuple(int(s) for s in value["shape"]),
+            aligned128=bool(value["aligned128"]),
+        )
+    if isinstance(value, dict) and "inv_blocks" in value:
+        return BlockJacobi(
+            torch.tensor(np.asarray(value["inv_blocks"]), dtype=dtype, device=device),
+            int(value["n"]),
+        )
+    return torch.tensor(np.asarray(value), dtype=dtype, device=device)
+
+
+def cg_operators_from_numpy(arrays: dict, device, dtype=torch.float64):
+    """The port's CGOperators, or BandedCGOperators when `arrays` has
+    `vert_pos`, from the leaves of the JAX package's operators, by field:
+
+    * an EllMatrix as {"cols", "vals", "shape"};
+    * a BandedMatrix as {"blocks", "pad", "g", "shape", "aligned128"};
+    * a BlockJacobi as {"inv_blocks", "n"};
+    * `conv` as the ConvectionKernel's fields (CONV_FIELDS);
+    * every other field (vectors, 0-d rho and dt, vert_pos) as an array."""
+    cls = BandedCGOperators if "vert_pos" in arrays else CGOperators
+    return cls(**{name: _leaf(name, arrays[name], device, dtype)
+                  for name in cls._fields})

@@ -9,6 +9,7 @@ from .marking import (
     OUTFLOW,
     UNMARKED,
 )
+from .xdmf import load_npz, read_xdmf, save_npz
 
 __all__ = [
     "TriMesh",
@@ -20,4 +21,7 @@ __all__ = [
     "INFLOW",
     "OUTFLOW",
     "UNMARKED",
+    "load_npz",
+    "read_xdmf",
+    "save_npz",
 ]

@@ -43,24 +43,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def compile_all(names) -> None:
+    """Compile every csrc/<name>.cu whose library is missing, one nvcc per
+    source, all started together.  Raises with nvcc's output when a compile
+    fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        # Compile to a private name, then rename: concurrent first uses
+        # never load a half-written library.
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, compiling it first if its library
-    is missing.  Raises with nvcc's output when the compile fails."""
+    is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # Compile to a private name, then rename: concurrent first uses
-            # never load a half-written library.
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            p = subprocess.run(cmd, capture_output=True, text=True)
-            if p.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu:\n{p.stdout}{p.stderr}"
-                )
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
+        compile_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -86,10 +86,15 @@ class ConvectionKernel:
         device,
         dtype=torch.float64,
         ns_pad: int | None = None,
+        dof_perm: np.ndarray | None = None,
         cells_pad: int = 0,
     ) -> "ConvectionKernel":
         """ns_pad: re-layout output dofs for a scalar block padded to ns_pad
         (solver pad_quantum): y-component dofs shift from +Ns to +ns_pad.
+        dof_perm: old->new velocity dof map (the banded CG layout's
+        interleaved RCM order); the gather indices, and with them the
+        fixed-order slot table, are remapped so the kernel consumes and
+        produces vectors in the new layout.
         cells_pad: quantize the cell count up to a multiple by repeating
         cell 0's tabulation with wdet=0 — exact, as in the JAX kernel (each
         cell's contribution is scaled by wdet)."""
@@ -108,6 +113,10 @@ class ConvectionKernel:
                 [cell_dofs[:, :6], cell_dofs[:, 6:] - ns + ns_pad], axis=1
             )
             ndofs = 2 * ns_pad
+        if dof_perm is not None:
+            if ns_pad is not None:
+                raise ValueError("dof_perm and ns_pad are exclusive")
+            cell_dofs = np.asarray(dof_perm)[cell_dofs]
         if cells_pad:
             C = cell_dofs.shape[0]
             k = -(-C // cells_pad) * cells_pad - C

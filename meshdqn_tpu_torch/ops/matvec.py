@@ -71,26 +71,32 @@ def relative_gap(y: torch.Tensor, ref: torch.Tensor) -> float:
             / torch.linalg.vector_norm(ref)).item()
 
 
-def gap_tolerance(n: int) -> float:
-    """The `relative_gap` allowed between an f32 kernel and its plain version
-    for rows of n terms: 2 sqrt(n) 2^-24.
+def gap_tolerance(n: int, dtype=torch.float32) -> float:
+    """The `relative_gap` allowed between a kernel and its plain version for
+    rows of n terms: 2 sqrt(n) u, with u = 2^-24 in f32 (and for bf16
+    operands, which a kernel widens to f32 exactly) and 2^-53 in f64.
 
-    Two f32 sums of the same n products in different orders differ by a
-    random walk of roundings; on unit-normal data its norm is about
-    0.1 sqrt(n) 2^-24 of ||y|| (the kernel's order emulated against torch's
-    on the CPU, n = 3 to 6644), so the factor 2 leaves 6x headroom at small n
-    and 20x at the step's widths.  Inputs rounded to TF32 (10-bit mantissa)
-    land at >= 50 sqrt(n) 2^-24 and to bf16 at >= 400 sqrt(n) 2^-24, so a
-    kernel that drops precision fails."""
-    return 2.0 * n**0.5 * 2.0**-24
+    Two sums of the same n products in different orders differ by a random
+    walk of roundings; on unit-normal data its norm is about 0.1 sqrt(n) u of
+    ||y|| (the kernel's order emulated against torch's on the CPU, n = 3 to
+    6644), so the factor 2 leaves 6x headroom at small n and 20x at the
+    step's widths.  Inputs rounded to TF32 (10-bit mantissa) land at
+    >= 50 sqrt(n) 2^-24 and to bf16 at >= 400 sqrt(n) 2^-24, so a kernel
+    that drops precision fails."""
+    u = 2.0**-53 if dtype == torch.float64 else 2.0**-24
+    return 2.0 * n**0.5 * u
 
 
 def round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
-    """f32 t rounded to `bits` mantissa bits (TF32 keeps 10, bf16 7): the
-    inputs of a kernel that lost precision, which `gap_tolerance` rejects."""
-    drop = 23 - bits
-    i = t.contiguous().view(torch.int32)
-    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+    """f32 or f64 t rounded to `bits` mantissa bits (TF32 keeps 10, bf16 7):
+    the inputs of a kernel that lost precision, which `gap_tolerance`
+    rejects."""
+    if t.dtype == torch.float64:
+        drop, itype = 52 - bits, torch.int64
+    else:
+        drop, itype = 23 - bits, torch.int32
+    i = t.contiguous().view(itype)
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(t.dtype)
 
 
 def _check(m: torch.Tensor, xs) -> tuple[int, int, int]:

@@ -76,3 +76,118 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         mv.matvec(M, torch.zeros(8))
     with pytest.raises(ValueError):  # x does not fit in shared memory
         mv.matvec(torch.zeros(1, 60000, device=cuda), torch.zeros(60000, device=cuda))
+
+
+# --------------------------------------------------------------------------
+# The CG path's kernels: banded_matmat (csrc/banded.cu), ell_matmat
+# (csrc/ell.cu).  Operators are RCM-banded random patterns at the shapes'
+# ratios of the solver's: square (g = R), wide (g = 2R), tall (g = R/2), with
+# a ragged last row block.
+# --------------------------------------------------------------------------
+
+
+def _spd_rcm(n, seed):
+    import scipy.sparse as sp
+
+    from meshdqn_tpu_torch.ops.banded import rcm_permutation
+
+    A = sp.random(n, n, density=0.01, random_state=seed, format="csr")
+    A = (A + A.T + sp.eye(n)).tocsr()
+    perm = rcm_permutation(A)
+    return A[perm][:, perm].tocsr()
+
+
+def _rect(A, kind):
+    n = A.shape[0]
+    return {"square": A, "wide": A[: n // 2, :], "tall": A[:, : n // 2]}[kind].tocsr()
+
+
+def _controls_fail(plain, yp, tol, inputs):
+    """The plain version on TF32- and bf16-rounded inputs must fail the gap
+    check, or the check proves nothing."""
+    for bits in (10, 7):
+        rounded = [mv.round_mantissa(t, bits) if t.is_floating_point() else t
+                   for t in inputs]
+        assert mv.relative_gap(plain(*rounded), yp) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("kind", ["square", "wide", "tall"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_banded_matches_plain_and_repeats_bits(cuda, dtype, kind, aligned, m):
+    from meshdqn_tpu_torch.ops import banded as bd
+
+    A = _rect(_spd_rcm(1500, seed=3), kind)
+    bm = bd.BandedMatrix.from_scipy(A, device=cuda, dtype=dtype, aligned128=aligned)
+    xdt = torch.float64 if dtype == torch.float64 else torch.float32
+    g = torch.Generator(device="cpu").manual_seed(m)
+    X = torch.randn((A.shape[1],) if m == 1 else (A.shape[1], m), generator=g,
+                    dtype=xdt).to(cuda)
+    y = bm @ X
+    assert y.shape == (A.shape[0],) + tuple(X.shape[1:]) and y.dtype == xdt
+    assert torch.equal(y, bm @ X)
+    kw = dict(pad=bm.pad, g=bm.g, aligned=aligned, n_rows=A.shape[0])
+    yp = bd.banded_matmat_reference(bm.blocks, X, **kw)
+    W = bm.blocks.shape[2]
+    tol = mv.gap_tolerance(W, xdt)
+    assert mv.relative_gap(y, yp) <= tol
+    blocks = bm.blocks if dtype != torch.bfloat16 else bm.blocks.float()
+    _controls_fail(lambda b, x: bd.banded_matmat_reference(b, x, **kw), yp, tol,
+                   [blocks, X])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R,C", [(2000, 2000), (777, 1500), (1500, 333)])
+def test_ell_matches_plain_and_repeats_bits(cuda, R, C, dtype, m):
+    import scipy.sparse as sp
+
+    from meshdqn_tpu_torch.ops import sparse as ell
+
+    A = sp.random(R, C, density=0.03, random_state=R, format="csr")
+    e = ell.EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
+    g = torch.Generator(device="cpu").manual_seed(R + m)
+    X = torch.randn((C,) if m == 1 else (C, m), generator=g, dtype=dtype).to(cuda)
+    y = e @ X
+    assert y.shape == (R,) + tuple(X.shape[1:]) and y.dtype == dtype
+    assert torch.equal(y, e @ X)
+    yp = ell.ell_matmat_reference(e.cols, e.vals, X)
+    tol = mv.gap_tolerance(e.cols.shape[1], dtype)
+    assert mv.relative_gap(y, yp) <= tol
+    _controls_fail(lambda v, x: ell.ell_matmat_reference(e.cols, v, x), yp, tol,
+                   [e.vals, X])
+
+
+@pytest.mark.cuda
+def test_sparse_kernels_count_and_reject(cuda):
+    from meshdqn_tpu_torch.ops import banded as bd
+    from meshdqn_tpu_torch.ops import sparse as ell
+
+    cols = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    vals = torch.ones(4, 3, device=cuda)
+    before = ell.ell_matmat.launches, bd.banded_matmat.launches
+    ell.ell_matmat(cols, vals, torch.ones(5, device=cuda))
+    bd.banded_matmat(torch.ones(1, 4, 128, device=cuda), torch.ones(4, device=cuda),
+                     pad=0, g=4, aligned=False, n_rows=4)
+    assert (ell.ell_matmat.launches, bd.banded_matmat.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    with pytest.raises(TypeError):  # cols must be int32
+        ell.ell_matmat(cols.long(), vals, torch.ones(5, device=cuda))
+    with pytest.raises(TypeError):  # X's dtype must match vals'
+        ell.ell_matmat(cols, vals, torch.ones(5, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):  # m = 3
+        ell.ell_matmat(cols, vals, torch.ones(5, 3, device=cuda))
+    with pytest.raises(TypeError):  # bf16 blocks take f32 X
+        bd.banded_matmat(torch.ones(1, 4, 128, device=cuda, dtype=torch.bfloat16),
+                         torch.ones(4, device=cuda, dtype=torch.bfloat16),
+                         pad=0, g=4, aligned=False, n_rows=4)
+    with pytest.raises(ValueError):  # W not a multiple of 8
+        bd.banded_matmat(torch.ones(1, 4, 12, device=cuda), torch.ones(4, device=cuda),
+                         pad=0, g=4, aligned=False, n_rows=4)
+    with pytest.raises(ValueError):  # the window does not fit in shared memory
+        bd.banded_matmat(torch.ones(1, 1, 40000, device=cuda),
+                         torch.ones(4, 2, device=cuda), pad=0, g=4, aligned=False,
+                         n_rows=1)

@@ -117,7 +117,8 @@ def test_no_silent_cpu(small_mesh, monkeypatch):
 
 @pytest.mark.parametrize("overrides", [
     {"precision": "f64"}, {"precision": "mixed"}, {"precision": "df32"},
-    {"precision": "f32", "method": "cg"}, {"precision": "f32", "fused": False},
+    # method='cg' is ported now; the mixed unfused step is not.
+    {"precision": "mixed", "fused": False}, {"precision": "f32", "fused": False},
 ])
 def test_unported_paths_raise(small_mesh, overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

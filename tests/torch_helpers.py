@@ -59,3 +59,31 @@ def rel(a, b) -> float:
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def jax_cg_leaves(dev) -> dict:
+    """The leaves of a meshdqn_tpu CGOperators or BandedCGOperators as numpy
+    arrays, in the form meshdqn_tpu_torch.convert.cg_operators_from_numpy
+    takes."""
+    from meshdqn_tpu.ops.banded import BandedMatrix
+    from meshdqn_tpu.ops.cg import BlockJacobi
+    from meshdqn_tpu.ops.convection import ConvectionKernel
+    from meshdqn_tpu.ops.sparse import EllMatrix
+    from meshdqn_tpu_torch.convert import CONV_FIELDS
+
+    out = {}
+    for name, v in dev._asdict().items():
+        if isinstance(v, EllMatrix):
+            out[name] = {"cols": np.asarray(v.cols), "vals": np.asarray(v.vals),
+                         "shape": v.shape}
+        elif isinstance(v, BandedMatrix):
+            out[name] = {"blocks": np.asarray(v.blocks), "pad": v.pad, "g": v.g,
+                         "shape": v.shape, "aligned128": v.aligned128}
+        elif isinstance(v, BlockJacobi):
+            out[name] = {"inv_blocks": np.asarray(v.inv_blocks), "n": v.n}
+        elif isinstance(v, ConvectionKernel):
+            out[name] = {f: getattr(v, f) if f == "ndofs" else np.asarray(getattr(v, f))
+                         for f in CONV_FIELDS}
+        else:
+            out[name] = np.asarray(v)
+    return out
