@@ -30,7 +30,9 @@ The kernels are built from source at first use.  Phases, one JSON line each
              without x_lo) must fall outside it; run twice for identical
              bits; timed (CUDA events, median of 25, L2 evicted before each
              launch) beside its bound, the plain version and one library
-             call (torch.matmul, or a torch.sparse CSR product)
+             call (torch.matmul, or a torch.sparse CSR product).  The banded
+             kernel's bound counts the bytes it reads (its packed tiles and
+             their index, X and Y), not the dense blocks
   solve      per pack: the fused f32 solve from rest with the launch
              counters zeroed; drag/lift within 1e-3 of the pack's f64 values
   profile    50 steps of a path under torch.profiler: device busy share
@@ -110,14 +112,15 @@ def peaks(name: str):
 def time_ms(fn, flush, reps=25):
     """Median device time of fn() over reps launches, each started with the
     L2 cache flushed (the step streams ~0.4 GB through a 50 MB L2, so every
-    operator arrives cold).  A spin of ~0.1 ms on the device before each
+    operator arrives cold).  A spin of ~0.5 ms on the device before each
     start event lets the host enqueue the launch before the device reaches
-    it, so host-side wrapper time stays out of the measurement."""
+    it, so host-side wrapper time stays out of the measurement (a spin of
+    0.1 ms let a loaded host's wrapper time into some medians)."""
     fn()
     pairs = []
     for _ in range(reps):
         flush.sum()  # reads evict L2 without leaving dirty lines behind
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -453,12 +456,16 @@ def csr_tensor(A, device, dtype):
 
 
 def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
-                      stored_bytes, entries, terms, pk, flush, **extra):
+                      read_bytes, entries, terms, pk, flush, *, stored_bytes,
+                      **extra):
     """One sparse kernel at one shape: gap to the plain version, controls,
     repeated bits, times and bounds.  `inputs` are the plain version's
     floating operands (matrix storage and X), which the controls round;
-    `entries` the stored matrix entries, each one multiply-add per column of
-    X; `terms` the terms of one row's sum."""
+    `read_bytes` what one product moves (the operator bytes the kernel
+    reads, X read once, Y written once), the bound's bytes; `stored_bytes`
+    the layout's stored operator bytes; `entries` the matrix entries the
+    kernel multiplies, each one multiply-add per column of X; `terms` the
+    terms of one row's sum."""
     from meshdqn_tpu_torch.ops import matvec as mv
 
     mem_peak, f32_peak, f64_peak = pk
@@ -488,12 +495,12 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
     xy_bytes = (A.shape[0] + A.shape[1]) * m * X.element_size()
     flops = 2 * entries * m
     peak = f64_peak if xdt == torch.float64 else f32_peak
-    t_bytes = (stored_bytes + xy_bytes) / mem_peak * 1e3 if mem_peak else None
+    t_bytes = read_bytes / mem_peak * 1e3 if mem_peak else None
     t_ops = flops / peak * 1e3 if peak else None
     row = {
         "phase": "kernels", "kernel": kernel, "op": op, "shape": list(A.shape),
         "m": m, "dtype": str(inputs[0].dtype).replace("torch.", ""), **extra,
-        "nnz": int(A.nnz), "stored_MB": stored_bytes / 1e6,
+        "nnz": int(A.nnz), "stored_MB": stored_bytes / 1e6, "read_MB": read_bytes / 1e6,
         "rel_gap": gap, "tol": tol, **controls,
         "max_abs_err": (y - yp).abs().max().item(),
         "kernel_ms": time_ms(kernel_fn, flush),
@@ -504,6 +511,8 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
         ("bytes" if t_bytes >= t_ops else "operations"),
         "nnz_bound_ms": None if not mem_peak else
         (A.nnz * (esize + 4) + (A.shape[0] + 1) * 4 + xy_bytes) / mem_peak * 1e3,
+        "stored_bound_ms": None if not mem_peak else
+        (stored_bytes + xy_bytes) / mem_peak * 1e3,
     }
     if row["bound_ms"]:
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
@@ -546,22 +555,26 @@ def check_cg_kernels(cuda, meshes, pk, flush):
         X = x_for(A, m, xdt, A.shape[0] + m)
         kw = dict(pad=bm.pad, g=bm.g, aligned=aligned, n_rows=A.shape[0])
         B, R, W = bm.blocks.shape
+        # The kernel reads the packed tiles; the bound counts their bytes.
         row = check_sparse_case(
             cuda, "banded_matmat", op, A, m, lambda: bm.matmat(X),
             lambda b, x: banded_matmat_reference(b, x, **kw), [bm.blocks, X],
-            bm.nbytes, B * R * W, W, pk, flush, airfoil=airfoil, aligned128=aligned,
-            blocks=[B, R, W], g=bm.g, pad=bm.pad)
+            bm.read_bytes(m), bm.tiles.values.numel(), W, pk, flush,
+            stored_bytes=bm.nbytes, airfoil=airfoil, aligned128=aligned,
+            blocks=[B, R, W], g=bm.g, pad=bm.pad, n_tiles=bm.tiles.values.shape[0],
+            tile_occupancy=bm.tiles.occupancy)
         rows["banded_matmat"].append(row)
         return row
 
     def ell_case(airfoil, op, A, m, dtype):
         e = EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
         X = x_for(A, m, dtype, A.shape[0] + m)
+        xy_bytes = (A.shape[0] + A.shape[1]) * m * X.element_size()
         row = check_sparse_case(
             cuda, "ell_matmat", op, A, m, lambda: e.matmat(X),
             lambda v, x: ell_matmat_reference(e.cols, v, x), [e.vals, X],
-            e.nbytes, e.vals.numel(), e.cols.shape[1], pk, flush, airfoil=airfoil,
-            K=e.cols.shape[1])
+            e.nbytes + xy_bytes, e.vals.numel(), e.cols.shape[1], pk, flush,
+            stored_bytes=e.nbytes, airfoil=airfoil, K=e.cols.shape[1])
         rows["ell_matmat"].append(row)
         return row
 
@@ -590,13 +603,14 @@ def check_cg_kernels(cuda, meshes, pk, flush):
     summary = {}
     for kname, plan in (("banded_matmat", STEP_BANDED), ("ell_matmat", STEP_ELL)):
         tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "nnz_bound_ms")}
+                                "nnz_bound_ms", "stored_bound_ms")}
         by_bytes = True
         for op, _, count in plan:
             r = step[kname, op]
             for k, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
                            ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
-                           ("nnz_bound_ms", "nnz_bound_ms")):
+                           ("nnz_bound_ms", "nnz_bound_ms"),
+                           ("stored_bound_ms", "stored_bound_ms")):
                 tot[k] = None if tot[k] is None or r[src] is None else tot[k] + count * r[src]
             by_bytes &= r["bound_by"] == "bytes"
         summary[kname] = dict(
@@ -610,9 +624,11 @@ def check_cg_kernels(cuda, meshes, pk, flush):
 
 def cg_step_bytes(dev, cfg):
     """Bytes one CG step reads once each: (operator bytes, all bytes).
-    Operators: banded blocks and block-Jacobi inverses times their applies.
-    All: also the dense pressure inverse, the ELL operators, the convection
-    tables and the vectors."""
+    Operators: the banded kernel's packed tiles and their index, and the
+    block-Jacobi inverses, times their applies.  All: also the dense
+    pressure inverse, the ELL operators, the convection tables and the
+    vectors."""
+    from meshdqn_tpu_torch.ops.banded import BandedMatrix
     from meshdqn_tpu_torch.ops.cg import BlockJacobi
 
     nbytes = lambda t: t.numel() * t.element_size()
@@ -622,8 +638,10 @@ def cg_step_bytes(dev, cfg):
     for name in ("A1bc", "A3bc_s", "R1", "P1m_s", "BT_s", "Ms", "G_s", "d1inv",
                  "d3inv"):
         v = getattr(dev, name)
-        b = v.nbytes if hasattr(v, "nbytes") else nbytes(
-            v.inv_blocks if isinstance(v, BlockJacobi) else v)
+        if isinstance(v, BandedMatrix):
+            b = v.tiles.nbytes
+        else:
+            b = nbytes(v.inv_blocks if isinstance(v, BlockJacobi) else v)
         ops += counts.get(name, 1) * b
     rest = (1 + pr) * nbytes(dev.A2inv) + dev.Kp.nbytes + pr * dev.A2bc.nbytes
     rest += sum(nbytes(t) for t in vars(dev.conv).values() if isinstance(t, torch.Tensor))
@@ -865,7 +883,7 @@ def main(argv=None) -> int:
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
          "library_ms": s["library_ms"],
-         **({"nnz_bound_ms": s["nnz_bound_ms"]} if "nnz_bound_ms" in s else {}),
+         **{k: s[k] for k in ("nnz_bound_ms", "stored_bound_ms") if k in s},
          "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()
     ]})

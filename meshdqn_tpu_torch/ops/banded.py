@@ -22,15 +22,25 @@ Kernel (csrc/banded.cu, CUDA C++ for sm_90a, bound with ctypes):
   (:180), the R = 128 aligned product with f32 or bf16 blocks.  Blocks are
   f32, bf16 (f32 X and Y, f32 accumulation) or f64.
 
-It is bound by the stored bytes of blocks (B R W entries, most of them the
-band's zero fill), read once; X and Y are a few hundred KB.  The kernel
-gives each row block one thread block, which stages the block's x window in
-shared memory straight from X (no padded copy of X is made), streams the
-block's rows with 16-byte loads, one warp per row, and reduces each row by a
-fixed shuffle tree, so results repeat bit for bit.
+The dense blocks hold 80-220x the operator's nonzeros, and the zeros
+cluster: on the finest meshes 2-12% of a window's 128-byte row segments
+hold a nonzero.  So the kernel does not read the blocks.  It reads
+`BandTiles`, each row's nonempty 128-byte segments ("tiles") packed
+contiguously with a CSR-like index (one int32 offset per row, one int32
+column-tile index per tile), built once per operator from the same (index,
+value) pairs as the blocks.  It is bound by those bytes; X and Y are a few
+hundred KB.  Each warp computes 8 rows: its block stages the row block's
+window of X in shared memory with asynchronous copies (zero outside
+[0, n_cols), so no padded copy of X is made), the warp streams its rows'
+tiles with 16-byte loads and reduces each row by a fixed shuffle tree, so
+results repeat bit for bit.  The blocks stay on the object: they are the
+JAX package's layout, bit for bit, and the input of the plain version.
 
-On CUDA tensors `banded_matmat` launches the kernel or raises; on CPU
-tensors it uses the plain version `banded_matmat_reference`.
+`banded_matmat(A, X)` takes the whole (frozen) BandedMatrix, so the tiles
+it reads and the blocks they came from cannot drift apart.  On CUDA
+tensors it launches the kernel or raises; on CPU tensors it uses the plain
+version `banded_matmat_reference`, which computes
+from the dense blocks, independently of the packing.
 `banded_matmat.launches` counts kernel launches,
 `banded_matmat_reference.calls` calls of the plain version.
 """
@@ -59,6 +69,13 @@ _ENTRY = {
 }
 
 
+# The packed tiles (csrc/banded.cu): one row of a row block by TILE_BYTES of
+# its window, i.e. 32 f32, 64 bf16 or 16 f64 entries.  R must be a multiple
+# of WARP_ROWS, the rows one warp of the kernel computes.
+WARP_ROWS = 8
+TILE_BYTES = 128
+
+
 def _lib():
     """csrc/banded.cu's library, built at first use, with its C signatures."""
     global _LIB
@@ -66,10 +83,15 @@ def _lib():
         lib = build.load("banded")
         for name, _ in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [_c_void_p] * 3 + [_c_int] * 9 + [_c_void_p]
+            fn.argtypes = [_c_void_p] * 5 + [_c_int] * 10 + [_c_void_p]
             fn.restype = _c_int
         _LIB = lib
     return _LIB
+
+
+def tile_width(dtype: torch.dtype) -> int:
+    """Entries of one tile row: TILE_BYTES of `dtype`."""
+    return TILE_BYTES // (torch.finfo(dtype).bits // 8)
 
 
 def rcm_permutation(pattern: sp.spmatrix) -> np.ndarray:
@@ -118,57 +140,146 @@ def banded_matmat_reference(blocks: torch.Tensor, X: torch.Tensor, *, pad: int,
     return Y[:, 0] if X.dim() == 1 else Y
 
 
-def _check(blocks, X, pad, g, n_rows):
-    """Validate CUDA operands for the kernel; returns (B, R, W, n_cols, m)."""
-    if blocks.dim() != 3:
-        raise ValueError(f"blocks must be (B, R, W), got {tuple(blocks.shape)}")
-    B, R, W = blocks.shape
-    if blocks.dtype not in _ENTRY:
-        raise TypeError(f"blocks must be float32, bfloat16 or float64, got {blocks.dtype}")
-    xdt = _ENTRY[blocks.dtype][1]
+@dataclass(frozen=True)
+class BandTiles:
+    """The nonempty tiles of a stored band (B, R, W), packed for the kernel.
+
+    Each of the B*R rows of the (B*R, W) band is cut into column tiles of
+    T = tile_width(dtype) entries.  Row q's nonempty tiles are
+    values[offsets[q]:offsets[q+1]], in ascending column order; tile k covers
+    window columns cols[k]*T ... cols[k]*T + T-1:
+
+        values[k, t] = blocks[q, cols[k]*T + t]   (as rows of the (B*R, W)
+        band), and every entry of blocks outside the tiles is 0.
+
+    The index is checked once, when the object is made; the kernel trusts
+    it."""
+
+    values: torch.Tensor  # (n_tiles, T)
+    offsets: torch.Tensor  # (B*R + 1,) int32
+    cols: torch.Tensor  # (n_tiles,) int32
+    width: int  # W
+
+    def __post_init__(self):
+        if self.values.dim() != 2:
+            raise ValueError(f"values must be (n_tiles, T), got {tuple(self.values.shape)}")
+        n_tiles, T = self.values.shape
+        if T != tile_width(self.values.dtype):
+            raise ValueError(f"{self.values.dtype} tiles are {tile_width(self.values.dtype)}"
+                             f" wide, got {T}")
+        if self.offsets.dtype != torch.int32 or self.cols.dtype != torch.int32:
+            raise TypeError(f"offsets and cols must be int32, got {self.offsets.dtype}"
+                            f" and {self.cols.dtype}")
+        if self.offsets.dim() != 1 or self.offsets.numel() < 1:
+            raise ValueError(f"offsets must be (n_rows + 1,), got "
+                             f"{tuple(self.offsets.shape)}")
+        if self.cols.shape != (n_tiles,):
+            raise ValueError(f"cols must be ({n_tiles},), got {tuple(self.cols.shape)}")
+        if self.width < T or self.width % T:
+            raise ValueError(f"W = {self.width} is not a multiple of the tile width {T}")
+        off = self.offsets.cpu().numpy().astype(np.int64)
+        if off[0] != 0 or off[-1] != n_tiles or (np.diff(off) < 0).any():
+            raise ValueError(f"tile offsets must rise from 0 to {n_tiles}")
+        c = self.cols.cpu().numpy()
+        if ((c < 0) | (c >= self.width // T)).any():
+            raise ValueError(f"column tiles must lie in [0, {self.width // T})")
+        # Strictly ascending inside each row (a row's first tile is free).
+        rising = np.diff(c) > 0
+        rising[off[(off > 0) & (off < n_tiles)] - 1] = True
+        if not rising.all():
+            raise ValueError("a row's column tiles must be ascending and distinct")
+
+    @classmethod
+    def from_pairs(cls, flat: np.ndarray, vals: torch.Tensor, shape: tuple) -> "BandTiles":
+        """From the (flat index into the (B*R*W,) blocks, value) pairs of a
+        band of `shape` (B, R, W), each index once: the index is computed on
+        the host, the values written on vals' device, each position once, so
+        the build is deterministic."""
+        B, R, W = shape
+        T = tile_width(vals.dtype)
+        if W < T or W % T:
+            raise ValueError(f"blocks {B, R, W} do not cut into tiles of {T} entries")
+        row, j = np.divmod(np.asarray(flat, dtype=np.int64), W)
+        n_ct = W // T
+        keys, tile = np.unique(row * n_ct + j // T, return_inverse=True)
+        offsets = np.searchsorted(keys // n_ct, np.arange(B * R + 1))
+        values = torch.zeros(len(keys) * T, dtype=vals.dtype, device=vals.device)
+        values[torch.as_tensor(tile.reshape(-1) * T + j % T, device=vals.device)] = vals
+        return cls(values=values.view(len(keys), T),
+                   offsets=torch.tensor(offsets.astype(np.int32), device=vals.device),
+                   cols=torch.tensor((keys % n_ct).astype(np.int32), device=vals.device),
+                   width=W)
+
+    @classmethod
+    def from_blocks(cls, blocks: torch.Tensor) -> "BandTiles":
+        """From dense blocks (B, R, W): their nonzero entries are the pairs."""
+        flat = torch.nonzero(blocks.reshape(-1)).squeeze(1)
+        return cls.from_pairs(flat.cpu().numpy(), blocks.reshape(-1)[flat],
+                              tuple(blocks.shape))
+
+    @property
+    def nbytes(self) -> int:
+        """What the kernel reads of the operator: packed values and index."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.values, self.offsets, self.cols))
+
+    @property
+    def occupancy(self) -> float:
+        """Share of the band's tiles that hold a nonzero."""
+        n_rows = self.offsets.numel() - 1
+        return self.values.shape[0] / max(n_rows * (self.width // self.values.shape[1]), 1)
+
+
+def _check(A, X):
+    """Validate CUDA operands of A @ X for the kernel; returns m."""
+    t = A.tiles
+    if A.blocks.dtype not in _ENTRY:
+        raise TypeError(f"blocks must be float32, bfloat16 or float64, got "
+                        f"{A.blocks.dtype}")
+    xdt = _ENTRY[A.blocks.dtype][1]
     if X.dtype != xdt:
-        raise TypeError(f"{blocks.dtype} blocks take {xdt} X, got {X.dtype}")
-    if X.dim() not in (1, 2):
-        raise ValueError(f"X must be (n,) or (n, m), got {tuple(X.shape)}")
-    n_cols = X.shape[0]
+        raise TypeError(f"{A.blocks.dtype} blocks take {xdt} X, got {X.dtype}")
     m = 1 if X.dim() == 1 else X.shape[1]
     if m not in (1, 2):
         raise ValueError(f"the kernel takes m in (1, 2) right-hand sides, got {m}")
-    if W % 8:
-        raise ValueError(f"W = {W} is not a multiple of 8")
-    if not 0 <= n_rows <= B * R or g < 1 or pad < 0:
-        raise ValueError(f"n_rows={n_rows}, g={g}, pad={pad} do not fit blocks {B, R, W}")
-    smem = W * m * X.element_size()
+    smem = t.width * m * X.element_size()
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"the x window needs {smem} bytes of shared memory, above "
                          f"the {MAX_SMEM_BYTES} a block may use")
-    if torch.cuda.current_device() != blocks.device.index:
-        raise ValueError(f"blocks is on {blocks.device}, but the current device is "
+    dev = t.values.device
+    if torch.cuda.current_device() != dev.index:
+        raise ValueError(f"the tiles are on {dev}, but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    if X.device != blocks.device:
-        raise ValueError(f"operands on {X.device} and {blocks.device}")
-    if not (blocks.is_contiguous() and X.is_contiguous()):
+    parts = (X, t.offsets, t.cols)
+    if any(p.device != dev for p in parts):
+        raise ValueError(f"operands on {[str(p.device) for p in parts]}, tiles on {dev}")
+    if not all(p.is_contiguous() for p in (t.values, *parts)):
         raise ValueError("the kernel takes contiguous operands")
-    if blocks.data_ptr() % 16:
-        raise ValueError("blocks must start 16-byte aligned")
-    return B, R, W, n_cols, m
+    if t.values.data_ptr() % 16:
+        raise ValueError("the packed tiles must start 16-byte aligned")
+    return m
 
 
-def banded_matmat(blocks: torch.Tensor, X: torch.Tensor, *, pad: int, g: int,
-                  aligned: bool, n_rows: int) -> torch.Tensor:
-    """Y = A @ X for a banded layout (see the module note); X (n_cols,) or
-    (n_cols, m<=2)."""
-    if not (blocks.is_cuda or X.is_cuda):
-        return banded_matmat_reference(blocks, X, pad=pad, g=g, aligned=aligned,
-                                       n_rows=n_rows)
-    B, R, W, n_cols, m = _check(blocks, X, pad, g, n_rows)
-    name, ydt = _ENTRY[blocks.dtype]
-    Y = torch.empty((n_rows,) if X.dim() == 1 else (n_rows, m), dtype=ydt,
-                    device=blocks.device)
+def banded_matmat(A: "BandedMatrix", X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a banded operator (see the module note); X (n_cols,)
+    or (n_cols, m<=2).  On the card the kernel reads A's packed tiles; on
+    the CPU the plain version reads its dense blocks."""
+    if X.dim() not in (1, 2) or X.shape[0] != A.shape[1]:
+        raise ValueError(f"X must be ({A.shape[1]},) or ({A.shape[1]}, m), got "
+                         f"{tuple(X.shape)}")
+    kw = dict(pad=A.pad, g=A.g, aligned=A.aligned128, n_rows=A.shape[0])
+    if not (A.blocks.is_cuda or X.is_cuda):
+        return banded_matmat_reference(A.blocks, X, **kw)
+    m = _check(A, X)
+    t = A.tiles
+    B, R, W = A.blocks.shape
+    name, ydt = _ENTRY[A.blocks.dtype]
+    Y = torch.empty((A.shape[0],) if X.dim() == 1 else (A.shape[0], m), dtype=ydt,
+                    device=X.device)
     err = getattr(_lib(), name)(
-        blocks.data_ptr(), X.data_ptr(), Y.data_ptr(), B, R, W, g, pad,
-        int(aligned), n_rows, n_cols, m,
-        torch.cuda.current_stream(blocks.device).cuda_stream,
+        t.values.data_ptr(), t.offsets.data_ptr(), t.cols.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), B, R, W, A.g, A.pad, int(A.aligned128), A.shape[0], A.shape[1],
+        t.values.shape[0], m, torch.cuda.current_stream(X.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -211,16 +322,39 @@ def banded_layout(A: sp.spmatrix, R: int = 128, g: int | None = None,
     return row * W + j, coo.data, B, W, pad, g
 
 
-@dataclass
+@dataclass(frozen=True, eq=False)
 class BandedMatrix:
     """Dense banded row blocks on one device: blocks (B, R, W); block b's
-    window starts at window_starts(B, g, aligned128)[b] - pad."""
+    window starts at window_starts(B, g, aligned128)[b] - pad.  `tiles`,
+    the blocks' nonempty tiles that the kernel reads, is made from the
+    blocks when not given.  Frozen, so blocks and tiles stay one operator."""
 
     blocks: torch.Tensor
     pad: int
     g: int
     shape: tuple
     aligned128: bool = False
+    tiles: BandTiles | None = None
+
+    def __post_init__(self):
+        if self.blocks.dim() != 3:
+            raise ValueError(f"blocks must be (B, R, W), got {tuple(self.blocks.shape)}")
+        B, R, W = self.blocks.shape
+        if R % WARP_ROWS:
+            raise ValueError(f"R = {R} is not a multiple of the kernel's {WARP_ROWS}-row "
+                             f"warp")
+        if not (0 <= self.shape[0] <= B * R and self.g >= 1 and self.pad >= 0):
+            raise ValueError(f"shape={self.shape}, g={self.g}, pad={self.pad} do not fit "
+                             f"blocks {B, R, W}")
+        if self.tiles is None:
+            object.__setattr__(self, "tiles", BandTiles.from_blocks(self.blocks))
+        t = self.tiles
+        if (t.values.dtype != self.blocks.dtype or t.width != W
+                or t.offsets.numel() != B * R + 1 or t.values.device != self.blocks.device):
+            raise ValueError(f"tiles of {t.values.dtype}, W = {t.width}, "
+                             f"{t.offsets.numel() - 1} rows on {t.values.device} do not "
+                             f"belong to {self.blocks.dtype} blocks {B, R, W} on "
+                             f"{self.blocks.device}")
 
     @classmethod
     def from_scipy(cls, A: sp.spmatrix, *, device, dtype=torch.float32,
@@ -228,29 +362,33 @@ class BandedMatrix:
                    aligned128: bool = False) -> "BandedMatrix":
         """Build from a (reordered) scipy matrix.  R defaults to 128, the
         JAX package's TPU production layout, on every device.  The blocks
-        are written on `device` from the (index, value) pairs, each index
-        once, so the write is deterministic; values are rounded to `dtype`
-        as the JAX package rounds them."""
+        and the tiles are written on `device` from the same (index, value)
+        pairs, each index once, so the writes are deterministic; values are
+        rounded to `dtype` as the JAX package rounds them."""
         flat, vals, B, W, pad, g = banded_layout(A, R, g, aligned128)
         if dtype == torch.float32:
             vals = vals.astype(np.float32)
+        vals = torch.as_tensor(vals).to(device=device, dtype=dtype)
         blocks = torch.zeros(B * R * W, dtype=dtype, device=device)
-        blocks[torch.as_tensor(flat, device=device)] = torch.as_tensor(vals).to(
-            device=device, dtype=dtype)
+        blocks[torch.as_tensor(flat, device=device)] = vals
         return cls(blocks=blocks.view(B, R, W), pad=pad, g=g,
-                   shape=tuple(int(s) for s in A.shape), aligned128=aligned128)
+                   shape=tuple(int(s) for s in A.shape), aligned128=aligned128,
+                   tiles=BandTiles.from_pairs(flat, vals, (B, R, W)))
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the dense blocks (the stored band)."""
         return self.blocks.numel() * self.blocks.element_size()
+
+    def read_bytes(self, m: int = 1) -> int:
+        """Bytes one kernel product with m columns moves: the packed tiles
+        and their index, X read once and Y written once."""
+        xsize = 8 if self.blocks.dtype == torch.float64 else 4
+        return self.tiles.nbytes + (self.shape[0] + self.shape[1]) * m * xsize
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """Y = A @ X for X (n_cols,) or (n_cols, m<=2)."""
-        if X.shape[0] != self.shape[1]:
-            raise ValueError(f"X of shape {tuple(X.shape)} does not match "
-                             f"{self.shape}")
-        return banded_matmat(self.blocks, X, pad=self.pad, g=self.g,
-                             aligned=self.aligned128, n_rows=self.shape[0])
+        return banded_matmat(self, X)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matmat(x)

@@ -117,17 +117,25 @@ def _controls_fail(plain, yp, tol, inputs):
 @pytest.mark.parametrize("kind", ["square", "wide", "tall"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 def test_banded_matches_plain_and_repeats_bits(cuda, dtype, kind, aligned, m):
+    """The tiled kernel against the plain version of the dense blocks, with
+    X 16-byte aligned and off by one element."""
     from meshdqn_tpu_torch.ops import banded as bd
 
     A = _rect(_spd_rcm(1500, seed=3), kind)
     bm = bd.BandedMatrix.from_scipy(A, device=cuda, dtype=dtype, aligned128=aligned)
+    assert bm.tiles.values.shape[0] < bm.blocks.numel() // bm.tiles.values[0].numel()
     xdt = torch.float64 if dtype == torch.float64 else torch.float32
     g = torch.Generator(device="cpu").manual_seed(m)
     X = torch.randn((A.shape[1],) if m == 1 else (A.shape[1], m), generator=g,
                     dtype=xdt).to(cuda)
+    before = bd.banded_matmat.launches
     y = bm @ X
+    assert bd.banded_matmat.launches == before + 1
     assert y.shape == (A.shape[0],) + tuple(X.shape[1:]) and y.dtype == xdt
     assert torch.equal(y, bm @ X)
+    shifted = torch.empty(X.numel() + 1, dtype=xdt, device=cuda)[1:].view(X.shape)
+    shifted.copy_(X)
+    assert torch.equal(y, bm @ shifted)
     kw = dict(pad=bm.pad, g=bm.g, aligned=aligned, n_rows=A.shape[0])
     yp = bd.banded_matmat_reference(bm.blocks, X, **kw)
     W = bm.blocks.shape[2]
@@ -136,6 +144,26 @@ def test_banded_matches_plain_and_repeats_bits(cuda, dtype, kind, aligned, m):
     blocks = bm.blocks if dtype != torch.bfloat16 else bm.blocks.float()
     _controls_fail(lambda b, x: bd.banded_matmat_reference(b, x, **kw), yp, tol,
                    [blocks, X])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("R", [8, 16, 24, 40, 48, 72])
+def test_banded_row_blocks_of_any_multiple_of_8_rows(cuda, R, m):
+    """A thread block's warps share one row block's x window, so it takes
+    4, 2 or 1 warps as R/8 allows: at R = 40, 48 or 72 a block of 4 warps
+    would straddle two row blocks."""
+    from meshdqn_tpu_torch.ops import banded as bd
+
+    A = _spd_rcm(1500, seed=5)
+    bm = bd.BandedMatrix.from_scipy(A, device=cuda, R=R)
+    g = torch.Generator(device="cpu").manual_seed(R + m)
+    X = torch.randn((1500,) if m == 1 else (1500, m), generator=g).to(cuda)
+    y = bm @ X
+    assert torch.equal(y, bm @ X)
+    yp = bd.banded_matmat_reference(bm.blocks, X, pad=bm.pad, g=bm.g, aligned=False,
+                                    n_rows=1500)
+    assert mv.relative_gap(y, yp) <= mv.gap_tolerance(bm.blocks.shape[2])
 
 
 @pytest.mark.cuda
@@ -163,15 +191,19 @@ def test_ell_matches_plain_and_repeats_bits(cuda, R, C, dtype, m):
 
 @pytest.mark.cuda
 def test_sparse_kernels_count_and_reject(cuda):
+    import dataclasses
+
     from meshdqn_tpu_torch.ops import banded as bd
     from meshdqn_tpu_torch.ops import sparse as ell
 
     cols = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
     vals = torch.ones(4, 3, device=cuda)
+    band = dict(pad=0, g=8, shape=(8, 8))
+    bm = bd.BandedMatrix(blocks=torch.ones(1, 8, 128, device=cuda), **band)
+    x = torch.ones(8, device=cuda)
     before = ell.ell_matmat.launches, bd.banded_matmat.launches
     ell.ell_matmat(cols, vals, torch.ones(5, device=cuda))
-    bd.banded_matmat(torch.ones(1, 4, 128, device=cuda), torch.ones(4, device=cuda),
-                     pad=0, g=4, aligned=False, n_rows=4)
+    bd.banded_matmat(bm, x)
     assert (ell.ell_matmat.launches, bd.banded_matmat.launches) == (before[0] + 1,
                                                                     before[1] + 1)
     with pytest.raises(TypeError):  # cols must be int32
@@ -181,13 +213,29 @@ def test_sparse_kernels_count_and_reject(cuda):
     with pytest.raises(ValueError):  # m = 3
         ell.ell_matmat(cols, vals, torch.ones(5, 3, device=cuda))
     with pytest.raises(TypeError):  # bf16 blocks take f32 X
-        bd.banded_matmat(torch.ones(1, 4, 128, device=cuda, dtype=torch.bfloat16),
-                         torch.ones(4, device=cuda, dtype=torch.bfloat16),
-                         pad=0, g=4, aligned=False, n_rows=4)
-    with pytest.raises(ValueError):  # W not a multiple of 8
-        bd.banded_matmat(torch.ones(1, 4, 12, device=cuda), torch.ones(4, device=cuda),
-                         pad=0, g=4, aligned=False, n_rows=4)
+        b16 = bd.BandedMatrix(blocks=torch.ones(1, 8, 128, device=cuda,
+                                                dtype=torch.bfloat16), **band)
+        b16 @ x.bfloat16()
+    with pytest.raises(ValueError):  # W not a multiple of the 32-entry f32 tile
+        bd.BandedMatrix(blocks=torch.ones(1, 8, 12, device=cuda), **band)
+    with pytest.raises(ValueError):  # m = 3
+        bm @ torch.ones(8, 3, device=cuda)
+    with pytest.raises(dataclasses.FrozenInstanceError):  # blocks and tiles stay one
+        bm.blocks = torch.zeros(1, 8, 128, device=cuda)
+    t = bm.tiles
+    with pytest.raises(ValueError):  # malformed offsets: falling
+        bd.BandTiles(values=t.values, offsets=t.offsets.flip(0), cols=t.cols,
+                     width=t.width)
+    with pytest.raises(ValueError):  # malformed offsets: not one per row
+        bd.BandedMatrix(blocks=bm.blocks, **band, tiles=bd.BandTiles(
+            values=t.values, offsets=torch.cat([t.offsets, t.offsets[-1:]]),
+            cols=t.cols, width=t.width))
+    with pytest.raises(ValueError):  # the packed buffer starts off 16 bytes
+        buf = torch.empty(t.values.numel() + 1, device=cuda)[1:].view(t.values.shape)
+        buf.copy_(t.values)
+        bd.BandedMatrix(blocks=bm.blocks, **band, tiles=bd.BandTiles(
+            values=buf, offsets=t.offsets, cols=t.cols, width=t.width)) @ x
     with pytest.raises(ValueError):  # the window does not fit in shared memory
-        bd.banded_matmat(torch.ones(1, 1, 40000, device=cuda),
-                         torch.ones(4, 2, device=cuda), pad=0, g=4, aligned=False,
-                         n_rows=1)
+        wide = bd.BandedMatrix(blocks=torch.ones(1, 8, 40000, device=cuda), pad=0,
+                               g=8, shape=(8, 40000))
+        wide @ torch.ones(40000, 2, device=cuda)
