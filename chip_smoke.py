@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 Two paths, each driven through IPCSSolver, the entry point a user calls:
 
 * the fused f32 solve, 5000 steps on each of the two airfoil packs in
-  checkpoints/, every dense apply through the matvec kernel
-  (meshdqn_tpu_torch/csrc/matvec.cu);
+  checkpoints/, each step three launches of the matvec kernel's grouped
+  form (meshdqn_tpu_torch/csrc/matvec.cu: the seven dense applies and the
+  elementwise work around them);
 * the large-mesh CG solve at the production config (f32, banded layout,
   block-Jacobi PCG, 6 / 5 iterations), 5000 steps on the finest generated
   mesh of each airfoil (meshdqn_tpu_torch/data/*.npz), every sparse product
@@ -32,9 +33,16 @@ The kernels are built from source at first use.  Phases, one JSON line each
              launch) beside its bound, the plain version and one library
              call (torch.matmul, or a torch.sparse CSR product).  The banded
              kernel's bound counts the bytes it reads (its packed tiles and
-             their index, X and Y), not the dense blocks
+             their index, X and Y), not the dense blocks.  The matvec
+             kernel's grouped form, per pack and launch, must also equal the
+             composition of single matvec launches and torch's elementwise
+             ops bit for bit, and is timed beside that composition
   solve      per pack: the fused f32 solve from rest with the launch
-             counters zeroed; drag/lift within 1e-3 of the pack's f64 values
+             counters zeroed (3 grouped launches a step and no single one,
+             asserted); drag/lift within 1e-3 of the pack's f64 values
+  grouped_bits  per pack: 100 steps from the solve's last state through
+             the grouped launches and through seven single launches a step
+             (fused_step(..., apply=matvec)), bit-equal at every step
   profile    50 steps of a path under torch.profiler: device busy share
              and time by kernel (fused, then CG)
   f64        per pack: the fused solve in f64 through the plain products
@@ -238,8 +246,110 @@ def check_kernels(cuda, meshes, mem_peak, flop_peak, flush):
         summary[kname] = dict(tot, max_abs_err=worst,
                               bound_by=("bytes" if by_bytes else "operations")
                               if tot["bound_ms"] is not None else None)
+        if kname == "matvec":
+            single_rows = seen
+    summary["matvec_group"] = check_grouped(cuda, meshes, mem_peak, flop_peak, flush,
+                                            single_rows)
     emit({"phase": "kernels", "checked": list(summary)})
     return summary
+
+
+def grouped_forms(mv, ns, npr):
+    """The fused step's three grouped launches at a pack's sizes: (form,
+    grouped wrapper, plain version, the operands' names, the row product
+    shapes (R, N, k) it groups, the terms summed into one output)."""
+    nu = 2 * ns
+    return [
+        ("ustar", mv.step_ustar, mv.step_ustar_reference,
+         ("F1u", "F1p", "A1Z", "rho", "k1", "u", "p", "c"),
+         [(nu, nu, 1), (nu, npr, 1), (nu, nu, 1)], 2 * nu + npr),
+        ("pressure", mv.step_pressure, mv.step_pressure_reference,
+         ("F2p", "F2u", "k2", "p", "u_star"), [(npr, npr, 1), (npr, nu, 1)], npr + nu),
+        ("velocity", mv.step_velocity, mv.step_velocity_reference,
+         ("F3s", "F3p", "k3", "u_star", "dp"),
+         [(ns, ns, 2), (nu, npr, 1)], ns + npr),
+    ]
+
+
+def check_grouped(cuda, meshes, mem_peak, flop_peak, flush, single_rows):
+    """The matvec kernel's grouped form: per pack, each of the fused step's
+    three launches on seeded operands against the composition of single
+    matvec launches with torch's elementwise ops (bit for bit) and against
+    its plain version (the same expression through matvec_reference, within
+    gap_tolerance of the terms summed into an output, TF32 and bf16 controls
+    outside it); repeated bits; times beside the bound, the composition, the
+    sum of the single launches' own times and the plain version.  Returns
+    the summary over one ys930 step."""
+    from meshdqn_tpu_torch.ops import matvec as mv
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+           "composed_ms": 0.0, "singles_ms": 0.0}
+    worst = 0.0
+    for pack, mesh in meshes.items():
+        ns, npr = mesh.num_vertices + mesh.num_edges, mesh.num_vertices
+        nu = 2 * ns
+        g = torch.Generator(device=cuda).manual_seed(ns * 7 + npr)
+        r = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+        t = {"F1u": r(nu, nu), "F1p": r(nu, npr), "A1Z": r(nu, nu), "k1": r(nu),
+             "rho": r(()), "F2p": r(npr, npr), "F2u": r(npr, nu), "k2": r(npr),
+             "F3s": r(ns, ns), "F3p": r(2, ns, npr), "k3": r(nu),
+             "u": r(nu), "p": r(npr), "c": r(nu), "u_star": r(nu), "dp": r(npr)}
+        for form, grouped, plain, names, shapes, terms in grouped_forms(mv, ns, npr):
+            args = [t[n] for n in names]
+            as_tuple = lambda y: y if isinstance(y, tuple) else (y,)
+            y = as_tuple(grouped(*args))
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, y, as_tuple(grouped(*args)))):
+                raise AssertionError(f"matvec_group {form} {pack}: bits differ between "
+                                     "runs")
+            composed = as_tuple(plain(*args, apply=mv.matvec))
+            if not all(map(torch.equal, y, composed)):
+                raise AssertionError(f"matvec_group {form} {pack}: not bit-equal to the "
+                                     "single launches and torch's elementwise ops")
+            yp = torch.cat(as_tuple(plain(*args)))
+            tol = mv.gap_tolerance(terms)
+            gap = mv.relative_gap(torch.cat(y), yp)
+            if not gap <= tol:
+                raise AssertionError(f"matvec_group {form} {pack}: ||y - plain|| / "
+                                     f"||plain|| = {gap:.3g} above {tol:.3g}")
+            controls = {
+                f"control_{name}_gap": mv.relative_gap(torch.cat(as_tuple(plain(
+                    *(mv.round_mantissa(a, bits) for a in args)))), yp)
+                for name, bits in (("tf32", 10), ("bf16", 7))
+            }
+            if not min(controls.values()) > tol:
+                raise AssertionError(f"matvec_group {form} {pack}: a control passes the "
+                                     f"check: {controls}")
+            # Each operand read once, each output written once.
+            nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in y))
+            flops = sum(2 * R * N * k for R, N, k in shapes)
+            t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
+            t_ops = flops / flop_peak * 1e3 if flop_peak else None
+            row = {
+                "phase": "kernels", "kernel": "matvec_group", "form": form, "pack": pack,
+                "products": shapes, "rel_gap": gap, "tol": tol, **controls,
+                "bits_equal_single_launches": True,
+                "max_abs_err": (torch.cat(y) - yp).abs().max().item(),
+                "kernel_ms": time_ms(lambda: grouped(*args), flush),
+                "composed_ms": time_ms(lambda: plain(*args, apply=mv.matvec), flush),
+                "singles_ms": sum(single_rows[s]["kernel_ms"] for s in shapes),
+                "plain_ms": time_ms(lambda: plain(*args), flush),
+                "library_ms": None,
+                "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
+                "bound_by": None if t_bytes is None else
+                ("bytes" if t_bytes >= t_ops else "operations"),
+            }
+            if row["bound_ms"]:
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            emit(row)
+            worst = max(worst, row["max_abs_err"])
+            if pack == PACKS[0]:
+                for k in ("ms", "plain_ms", "composed_ms", "singles_ms", "bound_ms"):
+                    v = row["kernel_ms" if k == "ms" else k]
+                    tot[k] = None if tot[k] is None or v is None else tot[k] + v
+        del t
+    return dict(tot, max_abs_err=worst,
+                bound_by="bytes" if tot["bound_ms"] is not None else None)
 
 
 def solve_pack(cuda, name, mesh, z, meta, mem_peak):
@@ -272,8 +382,8 @@ def solve_pack(cuda, name, mesh, z, meta, mem_peak):
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = read_counters()
-    expect = {"matvec": 7 * STEPS, "matvec_dual": 0, "banded_matmat": 0,
-              "ell_matmat": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    expect = {**NO_LAUNCHES, "step_ustar": STEPS, "step_pressure": STEPS,
+              "step_velocity": STEPS}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches}, expected {expect}")
 
@@ -426,11 +536,36 @@ def load_finest(name):
                   "lift": float(rows[0]["LIFT"])}
 
 
+def grouped_bits(name, solver, state, n=100):
+    """n steps from `state` through the grouped launches and through seven
+    single launches a step, bit-equal at every step."""
+    from meshdqn_tpu_torch.ops.matvec import matvec
+    from meshdqn_tpu_torch.solver import fused_step
+
+    a = b = state
+    for i in range(n):
+        a, (da, la) = fused_step(solver.dev, a)
+        b, (db, lb) = fused_step(solver.dev, b, apply=matvec)
+        if not (torch.equal(a.u, b.u) and torch.equal(a.p, b.p)
+                and torch.equal(da, db) and torch.equal(la, lb)):
+            raise AssertionError(f"{name}: step {i + 1} of the grouped launches differs "
+                                 "from the single launches")
+    emit({"phase": "grouped_bits", "pack": name, "steps": n, "bit_equal": True,
+          "final_drag": da.item(), "final_lift": la.item()})
+
+
+# Every launch counter at 0: a path's expectation names what it launches.
+NO_LAUNCHES = {"matvec": 0, "matvec_dual": 0, "step_ustar": 0, "step_pressure": 0,
+               "step_velocity": 0, "banded_matmat": 0, "ell_matmat": 0,
+               "banded_plain_calls": 0, "ell_plain_calls": 0}
+GROUPED = ("step_ustar", "step_pressure", "step_velocity")
+
+
 def zero_counters():
     from meshdqn_tpu_torch.ops import banded, matvec, sparse
 
     for fn in (matvec.matvec, matvec.matvec_dual, banded.banded_matmat,
-               sparse.ell_matmat):
+               sparse.ell_matmat, *(getattr(matvec, k) for k in GROUPED)):
         fn.launches = 0
     banded.banded_matmat_reference.calls = 0
     sparse.ell_matmat_reference.calls = 0
@@ -441,6 +576,7 @@ def read_counters():
 
     return {"matvec": matvec.matvec.launches,
             "matvec_dual": matvec.matvec_dual.launches,
+            **{k: getattr(matvec, k).launches for k in GROUPED},
             "banded_matmat": banded.banded_matmat.launches,
             "ell_matmat": sparse.ell_matmat.launches,
             "banded_plain_calls": banded.banded_matmat_reference.calls,
@@ -696,8 +832,7 @@ def cg_solve(cuda, name, mesh, oracle, pk):
         u=1e-3 * torch.randn(solver.ndofs_u, device=cuda, generator=g),
         p=torch.zeros(solver.ndofs_p, device=cuda)), 25)
     out, ms, host_ms, counts = timed_solve(solver, STEPS, SAVE)
-    expect = {"banded_matmat": 18 * STEPS, "ell_matmat": 2 * STEPS, "matvec": 0,
-              "matvec_dual": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    expect = {**NO_LAUNCHES, "banded_matmat": 18 * STEPS, "ell_matmat": 2 * STEPS}
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
     check_finite(name, solver, out)
@@ -734,8 +869,7 @@ def cg_oracle(name, mesh, oracle):
     solver = IPCSSolver(mesh, cfg)
     out, ms, host_ms, counts = timed_solve(solver, STEPS, SAVE)
     per_step = 2 + (1 + cfg.cg_iters_u) + 2 + cfg.cg_pressure_refine + 2 + (1 + cfg.cg_iters_m)
-    expect = {"banded_matmat": 0, "ell_matmat": per_step * STEPS, "matvec": 0,
-              "matvec_dual": 0, "banded_plain_calls": 0, "ell_plain_calls": 0}
+    expect = {**NO_LAUNCHES, "ell_matmat": per_step * STEPS}
     if per_step != 54 or counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
     check_finite(name, solver, out)
@@ -828,13 +962,18 @@ def main(argv=None) -> int:
     # The fused path (first slice).
     launches = {k: 0 for k in summary}
     by_path = {k: {} for k in summary}
+    by_form = {k: 0 for k in GROUPED}
     rows, last = {}, None
     for name, (mesh, z, meta) in packs.items():
         solver, state, counted, rows[name] = solve_pack(cuda, name, mesh, z, meta,
                                                         pk[0])
-        for k in ("matvec", "matvec_dual"):
+        counted["matvec_group"] = sum(counted[k] for k in GROUPED)
+        for k in ("matvec", "matvec_dual", "matvec_group"):
             launches[k] += counted[k]
             by_path[k]["solve"] = by_path[k].get("solve", 0) + counted[k]
+        for k in GROUPED:
+            by_form[k] += counted[k]
+        grouped_bits(name, solver, state)
         if last is None:
             last = (solver, state)
         del solver, state
@@ -860,16 +999,22 @@ def main(argv=None) -> int:
         for name, (mesh, oracle) in finest.items():
             cg_diag(name, mesh, oracle, *cg_rows[name])
 
-    src = {"matvec": "matvec", "matvec_dual": "matvec", "banded_matmat": "banded",
-           "ell_matmat": "ell"}
+    src = {"matvec": "matvec", "matvec_dual": "matvec", "matvec_group": "matvec",
+           "banded_matmat": "banded", "ell_matmat": "ell"}
     replaces = {"matvec": "meshdqn_tpu/ops/pallas_kernels.py:124",
+                "matvec_group": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134",
                 "banded_matmat": "meshdqn_tpu/ops/pallas_kernels.py:250",
                 "ell_matmat": "meshdqn_tpu/ops/pallas_kernels.py:39"}
     # The banded kernel also takes the aligned layout and bf16 blocks.
     also = {"banded_matmat": ["meshdqn_tpu/ops/pallas_kernels.py:318",
                               "scripts/banded_formulation_bench.py:180"]}
-    note = {"matvec": "sums over the seven applies of one ys930 fused step",
+    note = {"matvec": "sums over the seven applies of one ys930 fused step (the "
+                      "single form: the grouped launches' bitwise yardstick)",
+            "matvec_group": "sums over the three grouped launches of one ys930 fused "
+                            "step; composed_ms times the same step as seven single "
+                            "launches and torch's elementwise ops, singles_ms sums "
+                            "the single launches' own times",
             "matvec_dual": "sums over the seven applies of one ys930 fused step",
             "banded_matmat": "sums over the 18 banded applies of one ys930 finest "
                              "production CG step",
@@ -879,11 +1024,13 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": f"meshdqn_tpu_torch/csrc/{src[k]}.cu",
          "replaces": replaces[k], "also_replaces": also.get(k, []),
          "launches": launches[k],
-         "launches_by_path": by_path[k], "on_main_path": k != "matvec_dual",
+         "launches_by_path": by_path[k], "on_main_path": launches[k] > 0,
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
          "library_ms": s["library_ms"],
-         **{k: s[k] for k in ("nnz_bound_ms", "stored_bound_ms") if k in s},
+         **{k: s[k] for k in ("nnz_bound_ms", "stored_bound_ms", "composed_ms",
+                              "singles_ms") if k in s},
+         **({"launches_by_form": by_form} if k == "matvec_group" else {}),
          "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()
     ]})

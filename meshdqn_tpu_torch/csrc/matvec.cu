@@ -1,171 +1,565 @@
-// Dense f32 matrix-vector product for the fused IPCS step, for Hopper (sm_90a).
+// Dense f32 matrix-vector products for the fused IPCS step, for Hopper (sm_90a).
 //
 // Replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_pallas (_mv_kernel) with
-// matvec_f32, and matvec_dual_pallas (_mv_dual_kernel) with matvec_dual_f32:
+// matvec_f32 and the grouped forms below, and matvec_dual_pallas
+// (_mv_dual_kernel) with matvec_dual_f32:
 //
 //   matvec_f32:       y = M @ x                 M (R, N), x (N, k), y (R, k)
 //   matvec_dual_f32:  y = M @ x_hi + M @ x_lo   (M read once)
+//   step_ustar_f32:     u* = ((F1u u + F1p p) - rho (A1Z c)) + k1
+//   step_pressure_f32:  p' = (F2p p + F2u u*) + k2,  dp = p' - p
+//   step_velocity_f32:  u'[r]    = ((F3s [u*x u*y])[r, 0] + (F3p_x dp)[r]) + k3[r]
+//                       u'[ns+r] = ((F3s [u*x u*y])[r, 1] + (F3p_y dp)[r]) + k3[ns+r]
 //
 // with k in {1, 2}, all row-major f32, true f32 FMA (no TF32, no tensor
 // cores: a matvec does 2 flops per 4-byte matrix entry, so there is no reuse
-// for them to exploit).
+// for them to exploit).  The three step_* forms are the fused IPCS step's
+// seven products and the elementwise work around them in three launches.
 //
-// Bound: bytes.  Every entry of M is used once, so the least time is
-// R * N * 4 bytes over the device-memory rate; x and y are a few KB.  The
-// design streams M once, coalesced, and keeps everything else on chip:
-//   * each block first copies x (and x_lo) into shared memory, so the only
-//     device-memory traffic in the main loop is M itself;
-//   * one warp per output row; lanes read consecutive 16-byte float4s of the
-//     row, kUnroll loads in flight per lane, with the streaming cache hint
-//     (M is not reused within a step, and a step's operators exceed L2);
-//   * rows whose start is not 16-byte aligned (N % 4 != 0) get a scalar head
-//     of at most 3 entries, and a scalar tail of at most 3; nothing is read
-//     past the row;
-//   * each lane keeps its own partial sums, reduced by a fixed xor-shuffle
-//     tree; no atomics and no split of a row across blocks, so the result is
-//     bit-reproducible from run to run.
+// Bound: bytes.  Every entry of a matrix is used once, so the least time is
+// its bytes over the device-memory rate; the vectors are a few tens of KB.
+//
+// Order.  A row's sum is fixed, so every launch repeats its bits and every
+// form gives the bits of the single product: one warp per output row; for
+// each product of the row, lane l takes the scalar head (columns up to the
+// row's first 16-byte boundary, lane < head), then float4 columns l, l+32,
+// ... of the aligned body in sequence, then the scalar tail (fewer than 4
+// columns), all by fmaf into one accumulator per right-hand side; then the
+// fixed xor-shuffle tree 16, 8, 4, 2, 1.  No atomics, no split of a row,
+// nothing read past a row.  The grouped forms combine their products with
+// explicitly rounded __fadd_rn / __fsub_rn / __fmul_rn in the order torch
+// evaluates solver/fused.py's expression, so nvcc cannot contract them into
+// an FMA: a grouped launch equals the single launches and torch's elementwise
+// ops bit for bit.
+//
+// Design for the card:
+//   * Each warp requests its row's first batch of the matrix (D float4 per
+//     lane, plus the head and tail scalars) before x has arrived; x goes into
+//     shared memory by cp.async meanwhile, so the HBM stream starts at once.
+//   * 8 warps a block; each lane keeps D = 8 float4 loads of its row in
+//     flight, 4 in launches whose row product has two x vectors (their
+//     reads take the registers).  A lane's loads live in registers, so D
+//     trades bytes in flight per warp against resident warps; a sweep of
+//     1-8 warps and D = 4-16 on the H100 put this choice within a few
+//     percent of the best on every shape of the step.
+//   * x is staged contiguously per right-hand side (an interleaved (N, 2) x
+//     is split on the way), each vector 16-byte aligned in shared memory.
+//     Rows with no scalar head read it as one conflict-free float4 per float4
+//     of the matrix; rows with a head of h entries (N % 4 != 0, or a matrix
+//     that starts off a 16-byte boundary) read two float4s and take the 4
+//     values at offset h (a compile-time shift): the same values, in the
+//     same order, as scalar reads.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
-// after its launch (0 on success).  The caller allocates y and owns the
-// stream; nothing here synchronises or allocates.
+// after its launch (0 on success).  The caller allocates the outputs and owns
+// the stream; nothing here synchronises or allocates.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The staged x vectors of a block (dynamic shared memory).
+extern __shared__ __align__(16) float smem_x[];
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kUnroll = 4;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 // Shared memory a block may use on sm_90 (227 KB).
 constexpr int kMaxSmemBytes = 232448;
+constexpr int kMaxProducts = 3;
+constexpr int kMaxSlots = 4;
 
-template <int K, bool DUAL>
-__device__ __forceinline__ void fma_entry(float m, int c, const float* xs,
-                                          int nx, float (&hi)[K],
-                                          float (&lo)[K]) {
+// One row product of a launch: output row r reads row row0 + r of M, whose
+// k right-hand sides are the staged slots slot .. slot + k - 1.
+struct Product {
+  const float* M;
+  int N;
+  int row0;
+  int slot;
+};
+
+// A launch: its products, the x vectors it stages (slot s holds
+// src[s][i * stride[s]] for i < len[s] at float offset off[s] of shared
+// memory, a multiple of 4), and the epilogue's operands.
+struct Group {
+  Product prod[kMaxProducts];
+  const float* src[kMaxSlots];
+  int stride[kMaxSlots];
+  int len[kMaxSlots];
+  int off[kMaxSlots];
+  int slots;
+  int smem_bytes;
+  float* out0;
+  float* out1;
+  const float* in0;
+  const float* in1;
+  const float* rho;
+  int R;
+  int ns;
+};
+
+// 16 bytes of a matrix row: read once, evict first.  volatile keeps the
+// first batch's loads ahead of the staging of x and the barrier.
+__device__ __forceinline__ float4 load_m4(const float4* p) {
+  float4 r;
+  asm volatile("ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "l"(p));
+  return r;
+}
+__device__ __forceinline__ float load_m1(const float* p) {
+  float r;
+  asm volatile("ld.global.cs.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+
+// One value of x into shared memory by an asynchronous copy.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// A warp's row of one product: its start, width, scalar head and float4
+// count.
+struct Row {
+  const float* m;
+  int n;
+  int head;
+  int nvec;
+};
+
+__device__ __forceinline__ Row row_of(const Product& p, int r) {
+  Row w;
+  w.m = p.M + static_cast<size_t>(p.row0 + r) * p.N;
+  const int h = static_cast<int>(
+      ((16u - (static_cast<uint32_t>(reinterpret_cast<uintptr_t>(w.m)) & 15u)) &
+       15u) >> 2);
+  w.n = p.N;
+  w.head = h > p.N ? p.N : h;
+  w.nvec = (p.N - w.head) >> 2;
+  return w;
+}
+
+// Loads for float4 rounds b .. b + D - 1 of the row's body: lane l takes
+// float4 l + 32 * round.
+template <int D>
+__device__ __forceinline__ void load_batch(const Row& w, int lane, int b,
+                                           float4 (&m)[D]) {
+  const float4* mv = reinterpret_cast<const float4*>(w.m + w.head);
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    hi[j] = fmaf(m, xs[c * K + j], hi[j]);
-    if (DUAL) lo[j] = fmaf(m, xs[nx + c * K + j], lo[j]);
+  for (int u = 0; u < D; ++u) {
+    const int v = lane + 32 * (b + u);
+    if (v < w.nvec) m[u] = load_m4(mv + v);
   }
 }
 
-template <int K, bool DUAL>
-__global__ void __launch_bounds__(kThreads)
-    matvec_kernel(const float* __restrict__ M, const float* __restrict__ x_hi,
-                  const float* __restrict__ x_lo, float* __restrict__ y, int R,
-                  int N) {
-  extern __shared__ float xs[];  // [x_hi (N*K) | x_lo (N*K) when DUAL]
-  const int nx = N * K;
-  for (int i = threadIdx.x; i < nx; i += kThreads) {
-    xs[i] = __ldg(x_hi + i);
-    if (DUAL) xs[nx + i] = __ldg(x_lo + i);
-  }
-  __syncthreads();
+// The loads a row starts with: head and tail scalars and the first batch.
+template <int D>
+__device__ __forceinline__ void start_row(const Row& w, int lane, float& mh,
+                                          float& mt, float4 (&m)[D]) {
+  if (lane < w.head) mh = load_m1(w.m + lane);
+  const int t = w.head + 4 * w.nvec + lane;
+  if (t < w.n) mt = load_m1(w.m + t);
+  load_batch<D>(w, lane, 0, m);
+}
 
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;  // whole warps leave together; no barrier follows
-
-  const float* mrow = M + static_cast<size_t>(row) * N;
-  float hi[K], lo[K];
+// acc[j] += the float4 m of columns head + 4v .. + 3 times x_j there.  x_j
+// is 16-byte aligned in shared memory, so those columns lie in its float4s
+// v and v + 1 at offset H = head.
+template <int K, int H>
+__device__ __forceinline__ void fma4(const float4& m, int v, const int* xo,
+                                     float* acc) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    hi[j] = 0.0f;
-    lo[j] = 0.0f;
-  }
-
-  // Scalar head up to the first 16-byte boundary of the row.
-  int head = static_cast<int>(
-      ((16u - (static_cast<uint32_t>(reinterpret_cast<uintptr_t>(mrow)) & 15u)) &
-       15u) >> 2);
-  if (head > N) head = N;
-  if (lane < head) fma_entry<K, DUAL>(__ldcs(mrow + lane), lane, xs, nx, hi, lo);
-
-  // Aligned float4 body.
-  const int nvec = (N - head) >> 2;
-  const float4* mv = reinterpret_cast<const float4*>(mrow + head);
-  int v = lane;
-  for (; v + (kUnroll - 1) * 32 < nvec; v += kUnroll * 32) {
-    float4 m[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) m[u] = __ldcs(mv + v + u * 32);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int c = head + 4 * (v + u * 32);
-      fma_entry<K, DUAL>(m[u].x, c, xs, nx, hi, lo);
-      fma_entry<K, DUAL>(m[u].y, c + 1, xs, nx, hi, lo);
-      fma_entry<K, DUAL>(m[u].z, c + 2, xs, nx, hi, lo);
-      fma_entry<K, DUAL>(m[u].w, c + 3, xs, nx, hi, lo);
+    const float4* x4 = reinterpret_cast<const float4*>(smem_x + xo[j]);
+    const float4 a = x4[v];
+    float x0, x1, x2, x3;
+    if constexpr (H == 0) {
+      x0 = a.x; x1 = a.y; x2 = a.z; x3 = a.w;
+    } else {
+      const float4 b = x4[v + 1];
+      if constexpr (H == 1) {
+        x0 = a.y; x1 = a.z; x2 = a.w; x3 = b.x;
+      } else if constexpr (H == 2) {
+        x0 = a.z; x1 = a.w; x2 = b.x; x3 = b.y;
+      } else {
+        x0 = a.w; x1 = b.x; x2 = b.y; x3 = b.z;
+      }
     }
+    acc[j] = fmaf(m.x, x0, acc[j]);
+    acc[j] = fmaf(m.y, x1, acc[j]);
+    acc[j] = fmaf(m.z, x2, acc[j]);
+    acc[j] = fmaf(m.w, x3, acc[j]);
   }
-  for (; v < nvec; v += 32) {
-    const float4 m = __ldcs(mv + v);
-    const int c = head + 4 * v;
-    fma_entry<K, DUAL>(m.x, c, xs, nx, hi, lo);
-    fma_entry<K, DUAL>(m.y, c + 1, xs, nx, hi, lo);
-    fma_entry<K, DUAL>(m.z, c + 2, xs, nx, hi, lo);
-    fma_entry<K, DUAL>(m.w, c + 3, xs, nx, hi, lo);
+}
+
+// The row's body, its first batch already in m.
+template <int K, int D, int H>
+__device__ __forceinline__ void body(const Row& w, int lane, const int* xo,
+                                     float* acc, float4 (&m)[D]) {
+  for (int b = 0;;) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int v = lane + 32 * (b + u);
+      if (v < w.nvec) fma4<K, H>(m[u], v, xo, acc);
+    }
+    b += D;
+    if (32 * b >= w.nvec) break;
+    load_batch<D>(w, lane, b, m);
+  }
+}
+
+// Head, body, tail of one row product, its loads started by start_row.
+template <int K, int D>
+__device__ __forceinline__ void finish_row(const Row& w, int lane, const int* xo,
+                                           float mh, float mt, float4 (&m)[D],
+                                           float* acc) {
+  if (lane < w.head) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = fmaf(mh, smem_x[xo[j] + lane], acc[j]);
+  }
+  switch (w.head) {
+    case 0: body<K, D, 0>(w, lane, xo, acc, m); break;
+    case 1: body<K, D, 1>(w, lane, xo, acc, m); break;
+    case 2: body<K, D, 2>(w, lane, xo, acc, m); break;
+    default: body<K, D, 3>(w, lane, xo, acc, m); break;
+  }
+  const int t = w.head + 4 * w.nvec + lane;
+  if (t < w.n) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) acc[j] = fmaf(mt, smem_x[xo[j] + t], acc[j]);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void slot_offsets(const Group& g, int p, int (&xo)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) xo[j] = g.off[g.prod[p].slot + j];
+}
+
+// Products P.. of the row, each started after the one before it ends.
+template <class E, int D, int P>
+__device__ __forceinline__ void run_rest(const Group& g, int r, int lane,
+                                         float4 (&m)[D], float* acc) {
+  if constexpr (P < E::kProducts) {
+    constexpr int K = E::kK[P];
+    constexpr int off = E::kOff[P];
+    const Row w = row_of(g.prod[P], r);
+    float mh = 0.0f, mt = 0.0f;
+    start_row<D>(w, lane, mh, mt, m);
+    int xo[K];
+    slot_offsets<K>(g, P, xo);
+    finish_row<K, D>(w, lane, xo, mh, mt, m, acc + off);
+    run_rest<E, D, P + 1>(g, r, lane, m, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Epilogues: pre() loads what store() needs, before the row's products;
+// store() runs on lane 0 with the reduced sums.
+// ---------------------------------------------------------------------------
+
+template <int K>
+struct Plain {
+  static constexpr int kProducts = 1;
+  static constexpr int kK[1] = {K};
+  static constexpr int kOff[1] = {0};
+  static constexpr int kAcc = K;
+  static constexpr int kDepth = K == 1 ? 8 : 4;
+  static __device__ __forceinline__ void pre(const Group&, int, float (&)[3]) {}
+  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+                                               const float (&)[3]) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) g.out0[static_cast<size_t>(r) * K + j] = a[j];
+  }
+};
+
+// x_hi's K slots, then x_lo's; y = hi + lo.
+template <int K>
+struct Dual {
+  static constexpr int kProducts = 1;
+  static constexpr int kK[1] = {2 * K};
+  static constexpr int kOff[1] = {0};
+  static constexpr int kAcc = 2 * K;
+  static constexpr int kDepth = 4;
+  static __device__ __forceinline__ void pre(const Group&, int, float (&)[3]) {}
+  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+                                               const float (&)[3]) {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      g.out0[static_cast<size_t>(r) * K + j] = __fadd_rn(a[j], a[K + j]);
+  }
+};
+
+// u* = ((F1u u + F1p p) - rho (A1Z c)) + k1: in0 = k1.
+struct UStar {
+  static constexpr int kProducts = 3;
+  static constexpr int kK[3] = {1, 1, 1};
+  static constexpr int kOff[3] = {0, 1, 2};
+  static constexpr int kAcc = 3;
+  static constexpr int kDepth = 8;
+  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[3]) {
+    e[0] = g.in0[r];
+    e[1] = *g.rho;
+  }
+  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+                                               const float (&e)[3]) {
+    g.out0[r] = __fadd_rn(__fsub_rn(__fadd_rn(a[0], a[1]), __fmul_rn(e[1], a[2])), e[0]);
+  }
+};
+
+// p' = (F2p p + F2u u*) + k2, dp = p' - p: in0 = k2, in1 = p.
+struct Pressure {
+  static constexpr int kProducts = 2;
+  static constexpr int kK[2] = {1, 1};
+  static constexpr int kOff[2] = {0, 1};
+  static constexpr int kAcc = 2;
+  static constexpr int kDepth = 8;
+  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[3]) {
+    e[0] = g.in0[r];
+    e[1] = g.in1[r];
+  }
+  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+                                               const float (&e)[3]) {
+    const float pn = __fadd_rn(__fadd_rn(a[0], a[1]), e[0]);
+    g.out0[r] = pn;
+    g.out1[r] = __fsub_rn(pn, e[1]);
+  }
+};
+
+// u'[r] = (y[r, 0] + corr[r]) + k3[r], u'[ns + r] = (y[r, 1] + corr[ns + r])
+// + k3[ns + r], with y = F3s [u*x u*y] and corr = F3p dp: in0 = k3.
+struct Velocity {
+  static constexpr int kProducts = 3;
+  static constexpr int kK[3] = {2, 1, 1};
+  static constexpr int kOff[3] = {0, 2, 3};
+  static constexpr int kAcc = 4;
+  static constexpr int kDepth = 4;
+  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[3]) {
+    e[0] = g.in0[r];
+    e[1] = g.in0[g.ns + r];
+  }
+  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+                                               const float (&e)[3]) {
+    g.out0[r] = __fadd_rn(__fadd_rn(a[0], a[2]), e[0]);
+    g.out0[g.ns + r] = __fadd_rn(__fadd_rn(a[1], a[3]), e[1]);
+  }
+};
+
+// Launched with kThreads threads a block and g.smem_bytes of dynamic shared
+// memory; warp w of block b takes row b * kWarps + w.
+template <class E>
+__global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
+  constexpr int D = E::kDepth;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = r < g.R;
+
+  // 1. The first product's first loads, and the epilogue's operands.
+  float4 m[D];
+  float mh = 0.0f, mt = 0.0f;
+  float e[3] = {0.0f, 0.0f, 0.0f};
+  Row w0;
+  if (live) {
+    w0 = row_of(g.prod[0], r);
+    start_row<D>(w0, lane, mh, mt, m);
+    if (lane == 0) E::pre(g, r, e);
   }
 
-  // Scalar tail (fewer than 4 entries).
-  const int t = head + 4 * nvec + lane;
-  if (t < N) fma_entry<K, DUAL>(__ldcs(mrow + t), t, xs, nx, hi, lo);
+  // 2. x into shared memory while they fly.
+  for (int s = 0; s < g.slots; ++s) {
+    const float* src = g.src[s];
+    const int stride = g.stride[s];
+    float* dst = smem_x + g.off[s];
+    for (int i = threadIdx.x; i < g.len[s]; i += kThreads)
+      copy_async(dst + i, src + static_cast<size_t>(i) * stride);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!live) return;  // whole warps leave together; no barrier follows
 
-  // Fixed-order butterfly: every lane ends with the same total.
+  // 3. The row's products in order.
+  float acc[E::kAcc];
+#pragma unroll
+  for (int j = 0; j < E::kAcc; ++j) acc[j] = 0.0f;
+  {
+    constexpr int K = E::kK[0];
+    int xo[K];
+    slot_offsets<K>(g, 0, xo);
+    finish_row<K, D>(w0, lane, xo, mh, mt, m, acc);
+  }
+  run_rest<E, D, 1>(g, r, lane, m, acc);
+
+  // 4. Fixed-order butterfly: every lane ends with the same totals.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      hi[j] += __shfl_xor_sync(0xffffffffu, hi[j], off);
-      if (DUAL) lo[j] += __shfl_xor_sync(0xffffffffu, lo[j], off);
-    }
+    for (int j = 0; j < E::kAcc; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-      y[static_cast<size_t>(row) * K + j] = DUAL ? hi[j] + lo[j] : hi[j];
-  }
+  if (lane == 0) E::store(acc, g, r, e);
 }
 
-template <int K, bool DUAL>
-cudaError_t launch(const float* M, const float* x_hi, const float* x_lo,
-                   float* y, int R, int N, cudaStream_t stream) {
-  const int smem = N * K * (DUAL ? 2 : 1) * static_cast<int>(sizeof(float));
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+// Slot s holds n values of src at the given stride; returns false when the
+// slots exceed the shared memory a block may use.
+__host__ bool add_slot(Group& g, const float* src, int n, int stride) {
+  const int off = g.slots == 0 ? 0 : g.off[g.slots - 1] + ((g.len[g.slots - 1] + 3) & ~3);
+  g.src[g.slots] = src;
+  g.stride[g.slots] = stride;
+  g.len[g.slots] = n;
+  g.off[g.slots] = off;
+  ++g.slots;
+  g.smem_bytes = 4 * (off + ((n + 3) & ~3));
+  return g.smem_bytes <= kMaxSmemBytes;
+}
+
+__host__ Group new_group(int R) {
+  Group g = {};
+  g.R = R;
+  return g;
+}
+
+__host__ void set_product(Group& g, int p, const float* M, int N, int row0, int slot) {
+  g.prod[p].M = M;
+  g.prod[p].N = N;
+  g.prod[p].row0 = row0;
+  g.prod[p].slot = slot;
+}
+
+template <class E>
+cudaError_t launch(const Group& g, cudaStream_t stream) {
+  if (g.smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
   // Above 48 KB dynamic shared memory must be enabled per kernel; remember
   // the largest size granted so the attribute is set once per size class.
   static int granted = 48 * 1024;
-  if (smem > granted) {
+  if (g.smem_bytes > granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        matvec_kernel<K, DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        group_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
     if (err != cudaSuccess) return err;
-    granted = smem;
+    granted = g.smem_bytes;
   }
-  if (R == 0) return cudaSuccess;
-  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  matvec_kernel<K, DUAL><<<blocks, kThreads, smem, stream>>>(M, x_hi, x_lo, y,
-                                                              R, N);
+  if (g.R == 0) return cudaSuccess;
+  const int blocks = (g.R + kWarps - 1) / kWarps;
+  group_kernel<E><<<blocks, kThreads, g.smem_bytes, stream>>>(g);
   return cudaGetLastError();
+}
+
+// The groups of the entry points.
+__host__ bool matvec_group(Group& g, const float* M, const float* x, float* y, int R,
+                           int N, int k) {
+  g = new_group(R);
+  set_product(g, 0, M, N, 0, 0);
+  g.out0 = y;
+  bool ok = true;
+  for (int j = 0; j < k; ++j) ok &= add_slot(g, x + j, N, k);
+  return ok;
+}
+
+__host__ bool matvec_dual_group(Group& g, const float* M, const float* x_hi,
+                                const float* x_lo, float* y, int R, int N, int k) {
+  g = new_group(R);
+  set_product(g, 0, M, N, 0, 0);
+  g.out0 = y;
+  bool ok = true;
+  for (int j = 0; j < k; ++j) ok &= add_slot(g, x_hi + j, N, k);
+  for (int j = 0; j < k; ++j) ok &= add_slot(g, x_lo + j, N, k);
+  return ok;
+}
+
+__host__ bool ustar_group(Group& g, const float* F1u, const float* F1p,
+                          const float* A1Z, const float* u, const float* p,
+                          const float* c, const float* rho, const float* k1,
+                          float* ustar, int nu, int np) {
+  g = new_group(nu);
+  bool ok = add_slot(g, u, nu, 1) && add_slot(g, p, np, 1) && add_slot(g, c, nu, 1);
+  set_product(g, 0, F1u, nu, 0, 0);
+  set_product(g, 1, F1p, np, 0, 1);
+  set_product(g, 2, A1Z, nu, 0, 2);
+  g.out0 = ustar;
+  g.in0 = k1;
+  g.rho = rho;
+  return ok;
+}
+
+__host__ bool pressure_group(Group& g, const float* F2p, const float* F2u,
+                             const float* p, const float* ustar, const float* k2,
+                             float* pnew, float* dp, int np, int nu) {
+  g = new_group(np);
+  bool ok = add_slot(g, p, np, 1) && add_slot(g, ustar, nu, 1);
+  set_product(g, 0, F2p, np, 0, 0);
+  set_product(g, 1, F2u, nu, 0, 1);
+  g.out0 = pnew;
+  g.out1 = dp;
+  g.in0 = k2;
+  g.in1 = p;
+  return ok;
+}
+
+__host__ bool velocity_group(Group& g, const float* F3s, const float* F3p,
+                             const float* ustar, const float* dp, const float* k3,
+                             float* unew, int ns, int np) {
+  g = new_group(ns);
+  bool ok = add_slot(g, ustar, ns, 1) && add_slot(g, ustar + ns, ns, 1) &&
+            add_slot(g, dp, np, 1);
+  set_product(g, 0, F3s, ns, 0, 0);
+  set_product(g, 1, F3p, np, 0, 2);
+  set_product(g, 2, F3p, np, ns, 2);
+  g.out0 = unew;
+  g.in0 = k3;
+  g.ns = ns;
+  return ok;
 }
 
 }  // namespace
 
-extern "C" int matvec_f32(const float* M, const float* x, float* y, int R,
-                          int N, int k, void* stream) {
+extern "C" int matvec_f32(const float* M, const float* x, float* y, int R, int N,
+                          int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 1) return launch<1, false>(M, x, nullptr, y, R, N, s);
-  if (k == 2) return launch<2, false>(M, x, nullptr, y, R, N, s);
+  Group g;
+  if (k < 1 || k > 2 || !matvec_group(g, M, x, y, R, N, k)) return cudaErrorInvalidValue;
+  if (k == 1) return launch<Plain<1>>(g, s);
+  if (k == 2) return launch<Plain<2>>(g, s);
   return cudaErrorInvalidValue;
 }
 
-extern "C" int matvec_dual_f32(const float* M, const float* x_hi,
-                               const float* x_lo, float* y, int R, int N, int k,
-                               void* stream) {
+extern "C" int matvec_dual_f32(const float* M, const float* x_hi, const float* x_lo,
+                               float* y, int R, int N, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k == 1) return launch<1, true>(M, x_hi, x_lo, y, R, N, s);
-  if (k == 2) return launch<2, true>(M, x_hi, x_lo, y, R, N, s);
+  Group g;
+  if (k < 1 || k > 2 || !matvec_dual_group(g, M, x_hi, x_lo, y, R, N, k))
+    return cudaErrorInvalidValue;
+  if (k == 1) return launch<Dual<1>>(g, s);
+  if (k == 2) return launch<Dual<2>>(g, s);
   return cudaErrorInvalidValue;
+}
+
+// u* (nu = 2Ns rows) from u (nu), p (np), c (nu); rho a device scalar.
+extern "C" int step_ustar_f32(const float* F1u, const float* F1p, const float* A1Z,
+                              const float* u, const float* p, const float* c,
+                              const float* rho, const float* k1, float* ustar, int nu,
+                              int np, void* stream) {
+  Group g;
+  if (!ustar_group(g, F1u, F1p, A1Z, u, p, c, rho, k1, ustar, nu, np))
+    return cudaErrorInvalidValue;
+  return launch<UStar>(g, static_cast<cudaStream_t>(stream));
+}
+
+// p' and dp (np rows) from p (np) and u* (nu).
+extern "C" int step_pressure_f32(const float* F2p, const float* F2u, const float* p,
+                                 const float* ustar, const float* k2, float* pnew,
+                                 float* dp, int np, int nu, void* stream) {
+  Group g;
+  if (!pressure_group(g, F2p, F2u, p, ustar, k2, pnew, dp, np, nu))
+    return cudaErrorInvalidValue;
+  return launch<Pressure>(g, static_cast<cudaStream_t>(stream));
+}
+
+// u' (2 ns entries, ns rows) from u* (2 ns) and dp (np); F3p is (2 ns, np).
+extern "C" int step_velocity_f32(const float* F3s, const float* F3p, const float* ustar,
+                                 const float* dp, const float* k3, float* unew, int ns,
+                                 int np, void* stream) {
+  Group g;
+  if (!velocity_group(g, F3s, F3p, ustar, dp, k3, unew, ns, np))
+    return cudaErrorInvalidValue;
+  return launch<Velocity>(g, static_cast<cudaStream_t>(stream));
 }

@@ -4,26 +4,33 @@ Kernels (csrc/matvec.cu, CUDA C++ for sm_90a, bound with ctypes):
 
 * `matvec` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_pallas
   (_mv_kernel): y = m @ x, x of shape (N,) or (N, k) with k <= 2.
+* `step_ustar`, `step_pressure`, `step_velocity`: the same kernel in its
+  grouped form, the fused step's seven products and the elementwise work
+  around them in three launches (solver/fused.py).  Each equals its plain
+  version `step_*_reference` with `apply=matvec` (single launches and
+  torch's elementwise ops) bit for bit: every row product is summed in
+  `matvec`'s order, and the kernel rounds the epilogue as torch does.
 * `matvec_dual` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_dual_pallas
   (_mv_dual_kernel): y = m @ x_hi + m @ x_lo, reading m once.  No caller in
   the port yet (nor in the JAX package's step).
 
-Both are bound by the bytes of m (R * N * 4): a matvec does two flops per
-matrix entry and reuses none of it.  The kernel therefore streams m exactly
+All are bound by the bytes of the matrices: a matvec does two flops per
+matrix entry and reuses none of it.  The kernel streams each matrix exactly
 once with coalesced 16-byte loads, one warp per row, while x sits in shared
 memory; per-lane sums are reduced in a fixed shuffle order with no atomics,
 so results are bit-reproducible (the ys930 lift error is phase noise seeded
 by per-step rounding, so steps must be repeatable).
 
 On CUDA tensors the wrappers launch the kernel or raise.  On CPU tensors
-they use the plain versions `matvec_reference` / `matvec_dual_reference`,
-which the tests hold against the JAX kernels.  Each wrapper counts its
-launches in `<wrapper>.launches`.  On the card a kernel is held to its plain
-version by `relative_gap(y, y_plain) <= gap_tolerance(N)`.
+they use the plain versions, which the tests hold against the JAX kernels
+and the JAX step.  Each wrapper counts its launches in `<wrapper>.launches`.
+On the card a kernel is held to its plain version by
+`relative_gap(y, y_plain) <= gap_tolerance(N)`.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -48,6 +55,11 @@ def _lib():
         lib.matvec_f32.restype = _c_int
         lib.matvec_dual_f32.argtypes = [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]
         lib.matvec_dual_f32.restype = _c_int
+        lib.step_ustar_f32.argtypes = [_c_void_p] * 9 + [_c_int] * 2 + [_c_void_p]
+        lib.step_pressure_f32.argtypes = [_c_void_p] * 7 + [_c_int] * 2 + [_c_void_p]
+        lib.step_velocity_f32.argtypes = [_c_void_p] * 6 + [_c_int] * 2 + [_c_void_p]
+        for fn in (lib.step_ustar_f32, lib.step_pressure_f32, lib.step_velocity_f32):
+            fn.restype = _c_int
         _LIB = lib
     return _LIB
 
@@ -99,6 +111,21 @@ def round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
     return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(t.dtype)
 
 
+def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the operators on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"the kernel takes float32, got {t.dtype} for {name}")
+    if not t.is_contiguous():
+        raise ValueError(f"the kernel takes contiguous operands; {name} is not")
+
+
+def _check_current_device(device: torch.device) -> None:
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(f"the operators are on {device}, not on the current CUDA "
+                         "device")
+
+
 def _check(m: torch.Tensor, xs) -> tuple[int, int, int]:
     """Validate CUDA operands for the kernel; returns (R, N, k)."""
     if m.dim() != 2:
@@ -110,28 +137,23 @@ def _check(m: torch.Tensor, xs) -> tuple[int, int, int]:
     k = 1 if len(shape) == 1 else shape[1]
     if k not in (1, 2):
         raise ValueError(f"the kernel takes k in (1, 2) right-hand sides, got {k}")
-    smem = N * k * len(xs) * 4
+    smem = -(-N // 4) * 4 * k * len(xs) * 4  # each x column padded to 16 bytes
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"x needs {smem} bytes of shared memory, above the {MAX_SMEM_BYTES} "
             "a block may use"
         )
-    if torch.cuda.current_device() != m.device.index:
-        raise ValueError(
-            f"m is on {m.device}, but the current device is cuda:"
-            f"{torch.cuda.current_device()}"
-        )
-    for t in (m, *xs):
-        if t.device != m.device:
-            raise ValueError(f"operands on {t.device} and {m.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous operands")
+    for name, t in zip(("m", "x", "x_lo"), (m, *xs)):
+        _check_operand(name, t, m.device)
+    _check_current_device(m.device)
     for t in xs[1:]:
         if t.shape != shape:
             raise ValueError(f"x_hi {tuple(shape)} and x_lo {tuple(t.shape)} differ")
     return R, N, k
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _raise_on(err: int, name: str):
@@ -146,10 +168,8 @@ def matvec(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     R, N, k = _check(m, (x,))
     y = torch.empty((R,) if x.dim() == 1 else (R, k),
                     dtype=torch.float32, device=m.device)
-    err = _lib().matvec_f32(
-        m.data_ptr(), x.data_ptr(), y.data_ptr(), R, N, k,
-        torch.cuda.current_stream(m.device).cuda_stream,
-    )
+    err = _lib().matvec_f32(m.data_ptr(), x.data_ptr(), y.data_ptr(), R, N, k,
+                            _stream(m))
     _raise_on(err, "matvec_f32")
     matvec.launches += 1
     return y
@@ -164,14 +184,159 @@ def matvec_dual(
     R, N, k = _check(m, (x_hi, x_lo))
     y = torch.empty((R,) if x_hi.dim() == 1 else (R, k),
                     dtype=torch.float32, device=m.device)
-    err = _lib().matvec_dual_f32(
-        m.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(), y.data_ptr(), R, N, k,
-        torch.cuda.current_stream(m.device).cuda_stream,
-    )
+    err = _lib().matvec_dual_f32(m.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(),
+                                 y.data_ptr(), R, N, k, _stream(m))
     _raise_on(err, "matvec_dual_f32")
     matvec_dual.launches += 1
     return y
 
 
+# --------------------------------------------------------------------------
+# The fused step in three grouped launches (solver/fused.py).  The plain
+# versions are the step's torch expressions with every product through
+# `apply`: matvec_reference on the CPU, matvec for the seven single
+# launches, which the grouped kernel equals bit for bit.
+# --------------------------------------------------------------------------
+
+
+def step_ustar_reference(F1u, F1p, A1Z, rho, k1, u, p, c, apply=matvec_reference):
+    """Plain version of `step_ustar`: u* = F1u u + F1p p - rho A1Z c + k1."""
+    return apply(F1u, u) + apply(F1p, p) - rho * apply(A1Z, c) + k1
+
+
+def step_pressure_reference(F2p, F2u, k2, p, u_star, apply=matvec_reference):
+    """Plain version of `step_pressure`: (p', p' - p) with
+    p' = F2p p + F2u u* + k2."""
+    p_new = apply(F2p, p) + apply(F2u, u_star) + k2
+    return p_new, p_new - p
+
+
+def step_velocity_reference(F3s, F3p, k3, u_star, dp, apply=matvec_reference):
+    """Plain version of `step_velocity`: u' = [F3s u*_x + F3p[0] dp;
+    F3s u*_y + F3p[1] dp] + k3, F3p the (2, Ns, Np) stacked x/y blocks."""
+    ns = F3s.shape[0]
+    ustack = torch.stack([u_star[:ns], u_star[ns:]], dim=1)  # (Ns, 2)
+    y = apply(F3s, ustack)  # (Ns, 2)
+    # F3p as (2Ns, Np): its product with dp is [x-block; y-block], the
+    # transpose of the (Ns, 2) stack.
+    corr = apply(F3p.view(2 * ns, -1), dp).view(2, ns)
+    y = y + corr.T
+    return torch.cat([y[:, 0], y[:, 1]]) + k3
+
+
+# Per grouped form, weak references to the operator tensors last checked.
+_checked_operators: dict[str, tuple] = {}
+
+
+def _bind(sizes: dict, name: str, t: torch.Tensor, dims: tuple) -> None:
+    """Record or compare t's sizes under the names in dims (an int is a
+    fixed size)."""
+    if t.dim() != len(dims):
+        raise ValueError(f"{name} must have {len(dims)} dimensions, got shape "
+                         f"{tuple(t.shape)}")
+    for d, n in zip(dims, t.shape):
+        want = d if isinstance(d, int) else sizes.setdefault(d, n)
+        if n != want:
+            raise ValueError(f"{name} of shape {tuple(t.shape)} does not match the "
+                             f"other operands ({d} = {want})")
+
+
+def _check_group(form: str, ops, vecs, staged) -> dict:
+    """Validate a grouped launch's operands, given as (name, tensor, dims):
+    one device, float32, contiguous, sizes that agree; returns the sizes by
+    name.  `staged` names the sizes of the x vectors the launch stages in
+    shared memory.  The operators are constant over a solve, so beyond
+    their sizes they are checked once: while the same tensor objects come
+    back, only the vectors are."""
+    sizes: dict = {}
+    for name, t, dims in (*ops, *vecs):
+        _bind(sizes, name, t, dims)
+    smem = 4 * sum(-(-sizes[d] // 4) * 4 for d in staged)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{form}'s x vectors need {smem} bytes of shared memory, "
+                         f"above the {MAX_SMEM_BYTES} a block may use")
+    device = ops[0][1].device
+    refs = _checked_operators.get(form)
+    fresh = refs is None or any(r() is not t for r, (_, t, _) in zip(refs, ops))
+    for name, t, _ in (*ops, *vecs) if fresh else vecs:
+        _check_operand(name, t, device)
+    if fresh:
+        _check_current_device(device)
+        _checked_operators[form] = tuple(weakref.ref(t) for _, t, _ in ops)
+    return sizes
+
+
+def step_ustar(F1u, F1p, A1Z, rho, k1, u, p, c) -> torch.Tensor:
+    """u* = F1u u + F1p p - rho A1Z c + k1 in one launch, f32 on CUDA; rho
+    is a 0-d tensor, read on the device."""
+    if not (u.is_cuda or F1u.is_cuda):
+        return step_ustar_reference(F1u, F1p, A1Z, rho, k1, u, p, c)
+    n = _check_group(
+        "ustar",
+        (("F1u", F1u, ("nu", "nu")), ("F1p", F1p, ("nu", "np")),
+         ("A1Z", A1Z, ("nu", "nu")), ("rho", rho, ()), ("k1", k1, ("nu",))),
+        (("u", u, ("nu",)), ("p", p, ("np",)), ("c", c, ("nu",))),
+        ("nu", "np", "nu"),
+    )
+    out = torch.empty(n["nu"], dtype=torch.float32, device=u.device)
+    err = _lib().step_ustar_f32(
+        F1u.data_ptr(), F1p.data_ptr(), A1Z.data_ptr(), u.data_ptr(), p.data_ptr(),
+        c.data_ptr(), rho.data_ptr(), k1.data_ptr(), out.data_ptr(), n["nu"], n["np"],
+        _stream(u),
+    )
+    _raise_on(err, "step_ustar_f32")
+    step_ustar.launches += 1
+    return out
+
+
+def step_pressure(F2p, F2u, k2, p, u_star) -> tuple[torch.Tensor, torch.Tensor]:
+    """(p', p' - p) with p' = F2p p + F2u u* + k2, in one launch, f32 on
+    CUDA."""
+    if not (p.is_cuda or F2p.is_cuda):
+        return step_pressure_reference(F2p, F2u, k2, p, u_star)
+    n = _check_group(
+        "pressure",
+        (("F2p", F2p, ("np", "np")), ("F2u", F2u, ("np", "nu")), ("k2", k2, ("np",))),
+        (("p", p, ("np",)), ("u_star", u_star, ("nu",))),
+        ("np", "nu"),
+    )
+    p_new = torch.empty(n["np"], dtype=torch.float32, device=p.device)
+    dp = torch.empty_like(p_new)
+    err = _lib().step_pressure_f32(
+        F2p.data_ptr(), F2u.data_ptr(), p.data_ptr(), u_star.data_ptr(), k2.data_ptr(),
+        p_new.data_ptr(), dp.data_ptr(), n["np"], n["nu"], _stream(p),
+    )
+    _raise_on(err, "step_pressure_f32")
+    step_pressure.launches += 1
+    return p_new, dp
+
+
+def step_velocity(F3s, F3p, k3, u_star, dp) -> torch.Tensor:
+    """u' = [F3s u*_x + F3p[0] dp; F3s u*_y + F3p[1] dp] + k3 in one
+    launch, f32 on CUDA; F3p is (2, Ns, Np)."""
+    if not (u_star.is_cuda or F3s.is_cuda):
+        return step_velocity_reference(F3s, F3p, k3, u_star, dp)
+    n = _check_group(
+        "velocity",
+        (("F3s", F3s, ("ns", "ns")), ("F3p", F3p, (2, "ns", "np")),
+         ("k3", k3, ("nu",))),
+        (("u_star", u_star, ("nu",)), ("dp", dp, ("np",))),
+        ("ns", "ns", "np"),
+    )
+    if n["nu"] != 2 * n["ns"]:
+        raise ValueError(f"u* and k3 have {n['nu']} entries, not 2 Ns = {2 * n['ns']}")
+    out = torch.empty(n["nu"], dtype=torch.float32, device=u_star.device)
+    err = _lib().step_velocity_f32(
+        F3s.data_ptr(), F3p.data_ptr(), u_star.data_ptr(), dp.data_ptr(), k3.data_ptr(),
+        out.data_ptr(), n["ns"], n["np"], _stream(u_star),
+    )
+    _raise_on(err, "step_velocity_f32")
+    step_velocity.launches += 1
+    return out
+
+
 matvec.launches = 0
 matvec_dual.launches = 0
+step_ustar.launches = 0
+step_pressure.launches = 0
+step_velocity.launches = 0

@@ -16,8 +16,10 @@ with  F1u = A1Z R1,  F1p = A1Z (B - Bn),  A1Z = A1bc^{-1} Z_u,
 `compose_fused` builds them in f64 with one LU factorisation per system on
 the solver's device (Hopper has native f64, so the JAX package's
 Newton–Schulz inverse and f32-LU refinement are not needed), then casts to
-the working dtype.  `fused_step` sends every dense apply through
-ops.matvec.matvec, the hand-written kernel on CUDA.
+the working dtype.  `fused_step` runs the step's seven dense applies and
+the elementwise work around them as three launches of the hand-written
+matvec kernel's grouped form (ops.matvec.step_ustar, step_pressure,
+step_velocity) on CUDA.
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.convection import ConvectionKernel
-from ..ops.matvec import matvec
+from ..ops.matvec import (
+    step_pressure, step_pressure_reference, step_ustar, step_ustar_reference,
+    step_velocity, step_velocity_reference,
+)
 
 
 class FlowState(NamedTuple):
@@ -153,31 +158,29 @@ def compose_fused(
     )
 
 
-def fused_step(dev: FusedOperators, state: FlowState, apply=matvec):
+def fused_step(dev: FusedOperators, state: FlowState, apply=None):
     """One IPCS step via the fused dense operators; returns
     (new_state, (drag, lift)).  Works in the operators' dtype.
 
-    `apply` does the seven dense products: the kernel's wrapper, or its
-    plain version ops.matvec.matvec_reference for an f64 step on the card,
-    which the f32-only kernel does not take."""
+    By default the step is three grouped launches of the matvec kernel on
+    CUDA (their plain versions on the CPU).  With `apply`, the same torch
+    expressions with every dense product through `apply`: ops.matvec.matvec
+    for seven single launches, which the grouped launches equal bit for bit,
+    or its plain version ops.matvec.matvec_reference for an f64 step on the
+    card, which the f32-only kernel does not take."""
     u_n, p_n = state
     c = dev.conv(u_n)
-    u_star = (
-        apply(dev.F1u, u_n)
-        + apply(dev.F1p, p_n)
-        - dev.rho * apply(dev.A1Z, c)
-        + dev.k1
-    )
-    p_new = apply(dev.F2p, p_n) + apply(dev.F2u, u_star) + dev.k2
-    dp = p_new - p_n
-    ns = dev.F3s.shape[0]
-    ustack = torch.stack([u_star[:ns], u_star[ns:]], dim=1)  # (Ns, 2)
-    y = apply(dev.F3s, ustack)  # (Ns, 2)
-    # F3p as (2Ns, Np): its product with dp is [x-block; y-block], the
-    # transpose of the (Ns, 2) stack.
-    corr = apply(dev.F3p.view(2 * ns, -1), dp).view(2, ns)
-    y = y + corr.T
-    u_new = torch.cat([y[:, 0], y[:, 1]]) + dev.k3
+    if apply is None:
+        u_star = step_ustar(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1, u_n, p_n, c)
+        p_new, dp = step_pressure(dev.F2p, dev.F2u, dev.k2, p_n, u_star)
+        u_new = step_velocity(dev.F3s, dev.F3p, dev.k3, u_star, dp)
+    else:
+        u_star = step_ustar_reference(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1,
+                                      u_n, p_n, c, apply=apply)
+        p_new, dp = step_pressure_reference(dev.F2p, dev.F2u, dev.k2, p_n, u_star,
+                                            apply=apply)
+        u_new = step_velocity_reference(dev.F3s, dev.F3p, dev.k3, u_star, dp,
+                                        apply=apply)
 
     drag = dev.drag_u @ u_new + dev.drag_p @ p_new
     lift = dev.lift_u @ u_new + dev.lift_p @ p_new

@@ -79,6 +79,98 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 # --------------------------------------------------------------------------
+# The matvec kernel's grouped form: the fused step's three launches
+# (ops/matvec.py step_ustar, step_pressure, step_velocity) against the
+# composition of single launches with torch's elementwise ops, which they
+# must equal bit for bit.  (Ns, Np) are both packs' and ragged small sizes:
+# rows 1, 5, 33, 876 and widths with N % 4 in {1, 2, 3}.
+# --------------------------------------------------------------------------
+
+GROUP_SIZES = [(3322, 876), (3025, 797), (1, 5), (5, 33), (33, 7), (3, 876),
+               (438, 1), (877, 3)]
+
+
+def _step_operands(cuda, ns, npr, seed, shifted=False):
+    """Seeded operands of the fused step; with `shifted`, every tensor
+    starts one element past a 16-byte boundary, so every row has a head."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nu = 2 * ns
+
+    def r(*shape):
+        t = torch.randn(*shape, generator=g)
+        if not shifted:
+            return t.to(cuda)
+        buf = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return buf.copy_(t)
+
+    return {"F1u": r(nu, nu), "F1p": r(nu, npr), "A1Z": r(nu, nu), "k1": r(nu),
+            "rho": r(()), "F2p": r(npr, npr), "F2u": r(npr, nu), "k2": r(npr),
+            "F3s": r(ns, ns), "F3p": r(2, ns, npr), "k3": r(nu), "u": r(nu),
+            "p": r(npr), "c": r(nu), "u_star": r(nu), "dp": r(npr)}
+
+
+def _forms(ns, npr):
+    """(grouped wrapper, plain version, operand names, terms of one output)."""
+    return [
+        (mv.step_ustar, mv.step_ustar_reference,
+         ("F1u", "F1p", "A1Z", "rho", "k1", "u", "p", "c"), 4 * ns + npr),
+        (mv.step_pressure, mv.step_pressure_reference,
+         ("F2p", "F2u", "k2", "p", "u_star"), npr + 2 * ns),
+        (mv.step_velocity, mv.step_velocity_reference,
+         ("F3s", "F3p", "k3", "u_star", "dp"), ns + npr),
+    ]
+
+
+def _tuple(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("ns,npr", GROUP_SIZES)
+def test_grouped_launches_equal_single_launches_bit_for_bit(cuda, ns, npr, shifted):
+    t = _step_operands(cuda, ns, npr, seed=ns * 7 + npr, shifted=shifted)
+    for grouped, plain, names, terms in _forms(ns, npr):
+        args = [t[n] for n in names]
+        before = grouped.launches, mv.matvec.launches
+        y = _tuple(grouped(*args))
+        assert (grouped.launches, mv.matvec.launches) == (before[0] + 1, before[1])
+        assert all(map(torch.equal, y, _tuple(grouped(*args))))
+        assert all(map(torch.equal, y, _tuple(plain(*args, apply=mv.matvec))))
+        yp = torch.cat(_tuple(plain(*args)))
+        tol = mv.gap_tolerance(terms)
+        assert mv.relative_gap(torch.cat(y), yp) <= tol
+        for bits in (10, 7):
+            rounded = [mv.round_mantissa(a, bits) for a in args]
+            assert mv.relative_gap(torch.cat(_tuple(plain(*rounded))), yp) > tol
+
+
+@pytest.mark.cuda
+def test_grouped_launches_reject_what_they_do_not_take(cuda):
+    t = _step_operands(cuda, 6, 3, seed=1)
+    ustar = lambda **kw: mv.step_ustar(*({**t, **kw}[n] for n in (
+        "F1u", "F1p", "A1Z", "rho", "k1", "u", "p", "c")))
+    ustar()  # the operators pass and are remembered
+    with pytest.raises(ValueError):  # the vectors are checked on every call
+        ustar(u=torch.zeros(24, device=cuda)[::2])
+    with pytest.raises(ValueError):
+        ustar(p=torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):
+        ustar(c=t["c"].cpu())
+    with pytest.raises(TypeError):  # a new operator object is checked again
+        ustar(F1u=t["F1u"].double())
+    with pytest.raises(ValueError):
+        ustar(A1Z=t["A1Z"].T)
+    with pytest.raises(ValueError):  # rho is a device scalar
+        ustar(rho=torch.ones(1, device=cuda))
+    with pytest.raises(ValueError):  # F3p is the (2, Ns, Np) stack
+        mv.step_velocity(t["F3s"], t["F3p"].view(12, 3), t["k3"], t["u_star"], t["dp"])
+    with pytest.raises(ValueError, match="shared memory"):  # x: 60,001 floats
+        z = lambda *shape: torch.zeros(*shape, device=cuda)
+        mv.step_pressure(z(1, 1), z(1, 60000), z(1), z(1), z(60000))
+
+
+# --------------------------------------------------------------------------
 # The CG path's kernels: banded_matmat (csrc/banded.cu), ell_matmat
 # (csrc/ell.cu).  Operators are RCM-banded random patterns at the shapes'
 # ratios of the solver's: square (g = R), wide (g = 2R), tall (g = R/2), with

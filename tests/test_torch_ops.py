@@ -69,32 +69,45 @@ class TestMatvecPlainVsPallas:
 
 
 def _kernel_order(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = M @ x summed in csrc/matvec.cu's order for rows that start on a
-    16-byte boundary (k = 1): lane l takes float4 columns l, l + 32, ...,
-    each by fused multiply-add (exact f64 product and sum, one rounding to
-    f32), then the tail, then the xor-shuffle tree over the 32 lanes."""
+    """y = M @ x summed in csrc/matvec.cu's order (k = 1), for M stored
+    contiguously from a 16-byte boundary, as torch allocates it.  Row r
+    starts at entry r * N, so its scalar head is h = (-r N) mod 4 entries (at
+    most N, and 0 for every row when N % 4 == 0), taken by lanes 0 .. h - 1;
+    then lane l takes float4 columns h + 4v .. h + 4v + 3 for v = l, l + 32,
+    ..., each entry by fused multiply-add (exact f64 product and sum, one
+    rounding to f32); then the tail of fewer than 4 columns on lanes 0, 1,
+    2; then the xor-shuffle tree over the 32 lanes."""
     R, N = M.shape
-    m64, x64 = M.double(), x.double()
-    lanes = torch.zeros(R, 32, dtype=torch.float32)
+    heads = torch.tensor([min((-r * N) % 4, N) for r in range(R)])
+    y = torch.empty(R)
+    for h in heads.unique().tolist():
+        rows = heads == h
+        m64, x64 = M[rows].double(), x.double()
+        lanes = torch.zeros(m64.shape[0], 32, dtype=torch.float32)
 
-    def fma(cols, lane_ids):
-        lanes[:, lane_ids] = (lanes[:, lane_ids].double()
-                              + m64[:, cols] * x64[cols]).float()
+        def fma(cols, lane_ids):
+            lanes[:, lane_ids] = (lanes[:, lane_ids].double()
+                                  + m64[:, cols] * x64[cols]).float()
 
-    nvec = N // 4
-    for v0 in range(0, nvec, 32):
-        v = torch.arange(v0, min(v0 + 32, nvec))
-        for e in range(4):
-            fma(4 * v + e, v - v0)
-    tail = torch.arange(4 * nvec, N)
-    fma(tail, tail - 4 * nvec)
-    for off in (16, 8, 4, 2, 1):
-        lanes = lanes + lanes[:, torch.arange(32) ^ off]
-    return lanes[:, 0]
+        fma(torch.arange(h), torch.arange(h))
+        nvec = (N - h) // 4
+        for v0 in range(0, nvec, 32):
+            v = torch.arange(v0, min(v0 + 32, nvec))
+            for e in range(4):
+                fma(h + 4 * v + e, v - v0)
+        tail = torch.arange(h + 4 * nvec, N)
+        fma(tail, tail - h - 4 * nvec)
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, torch.arange(32) ^ off]
+        y[rows] = lanes[:, 0]
+    return y
 
 
 @pytest.mark.parametrize("R,N", [(64, 6644), (64, 3322), (64, 876), (64, 797),
-                                 (64, 8), (5, 3), (33, 1)])
+                                 (64, 8), (5, 3), (33, 1),
+                                 # rows with a scalar head: ah93w145's widths
+                                 # and every N % 4
+                                 (64, 6050), (64, 3025), (16, 5), (16, 6), (16, 7)])
 def test_gap_tolerance_passes_the_kernels_order_and_rejects_lost_precision(R, N):
     # What the card's check (tests/test_torch_cuda.py, chip_smoke.py) rests
     # on: the kernel's summation order sits well inside gap_tolerance of
