@@ -33,7 +33,12 @@ The kernels are built from source at first use.  Phases, one JSON line each
              launch) beside its bound, the plain version and one library
              call (torch.matmul, or a torch.sparse CSR product).  The banded
              kernel's bound counts the bytes it reads (its packed tiles and
-             their index, X and Y), not the dense blocks.  The matvec
+             their index, X and Y), not the dense blocks (stored_bound_ms);
+             the ELL kernel's counts the nonzeros, their columns, a row
+             index, X and Y (nnz_bound_ms), with the row slices it reads
+             (read_bound_ms) and the ELL arrays (stored_bound_ms) beside.
+             The ELL step sums cover the production step's 2 applies (f32)
+             and the f64 oracle step's 54.  The matvec
              kernel's grouped form, per pack and launch, must also equal the
              composition of single matvec launches and torch's elementwise
              ops bit for bit, and is timed beside that composition
@@ -43,8 +48,8 @@ The kernels are built from source at first use.  Phases, one JSON line each
   grouped_bits  per pack: 100 steps from the solve's last state through
              the grouped launches and through seven single launches a step
              (fused_step(..., apply=matvec)), bit-equal at every step
-  profile    50 steps of a path under torch.profiler: device busy share
-             and time by kernel (fused, then CG)
+  profile    50 steps of a path under torch.profiler: device busy share,
+             time by kernel and the port's kernels' sums (fused, then CG)
   f64        per pack: the fused solve in f64 through the plain products
   cg_solve   per finest mesh: the production CG solve, 5000 steps from rest
              with the counters zeroed (18 banded and 2 ELL launches a step,
@@ -53,7 +58,8 @@ The kernels are built from source at first use.  Phases, one JSON line each
              gen_finest_f64cg_oracle.csv picked by the mesh's sha8
   cg_oracle  per finest mesh: the oracle's own config (f64, ELL, Jacobi,
              25 / 20 iterations) on the card: 54 ELL launches a step,
-             final drag and lift within 1.5e-7 of the CSV's printed digits
+             final drag and lift within 1.5e-7 of the CSV's printed digits;
+             then 50 ys930 steps under torch.profiler (profile, cg_oracle)
   cg_diag    only with --diag, printed only: the production config in f64
              (banded f64 blocks), 5000 steps, and in the ELL layout in f32,
              500 steps
@@ -500,6 +506,9 @@ def profile_steps(solver, state, path, n=50):
             kernels += ev.count
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # The port's own kernels, each summed over its template instances.
+    ours = {k: sum(v for name, v in by_name.items() if k in name) / n
+            for k in ("group_kernel", "banded_tiles_kernel", "ell_kernel")}
     # device_busy_share is measured in the profiled window, where the
     # profiler also slows the host; busy over the unprofiled wall time of
     # the same steps, just before, is an estimate across two windows.
@@ -510,6 +519,7 @@ def profile_steps(solver, state, path, n=50):
           "device_ops_per_step": kernels / n,
           "device_busy_share": busy / wall_ms if busy else None,
           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
+          "port_kernels_ms_per_step": ours,
           "top_ms_per_step": {k[:80]: v / n for k, v in top}})
 
 
@@ -593,15 +603,17 @@ def csr_tensor(A, device, dtype):
 
 def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
                       read_bytes, entries, terms, pk, flush, *, stored_bytes,
-                      **extra):
+                      nnz_bound=False, **extra):
     """One sparse kernel at one shape: gap to the plain version, controls,
     repeated bits, times and bounds.  `inputs` are the plain version's
     floating operands (matrix storage and X), which the controls round;
     `read_bytes` what one product moves (the operator bytes the kernel
-    reads, X read once, Y written once), the bound's bytes; `stored_bytes`
-    the layout's stored operator bytes; `entries` the matrix entries the
-    kernel multiplies, each one multiply-add per column of X; `terms` the
-    terms of one row's sum."""
+    reads, X read once, Y written once); `stored_bytes` the layout's stored
+    operator bytes; `entries` the matrix entries the kernel multiplies,
+    each one multiply-add per column of X; `terms` the terms of one row's
+    sum.  The bound (bound_ms) counts `read_bytes` and `entries`, or with
+    `nnz_bound` the nonzeros alone (values, columns, a row index, X and
+    Y; one multiply-add each), read_bound_ms the read bytes beside it."""
     from meshdqn_tpu_torch.ops import matvec as mv
 
     mem_peak, f32_peak, f64_peak = pk
@@ -629,9 +641,11 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
     X2 = X.view(X.shape[0], -1)
     esize = inputs[0].element_size()
     xy_bytes = (A.shape[0] + A.shape[1]) * m * X.element_size()
-    flops = 2 * entries * m
+    nnz_bytes = A.nnz * (esize + 4) + (A.shape[0] + 1) * 4 + xy_bytes
+    flops = 2 * (A.nnz if nnz_bound else entries) * m
     peak = f64_peak if xdt == torch.float64 else f32_peak
-    t_bytes = read_bytes / mem_peak * 1e3 if mem_peak else None
+    ms_of = lambda b: b / mem_peak * 1e3 if mem_peak else None
+    t_bytes = ms_of(nnz_bytes if nnz_bound else read_bytes)
     t_ops = flops / peak * 1e3 if peak else None
     row = {
         "phase": "kernels", "kernel": kernel, "op": op, "shape": list(A.shape),
@@ -645,10 +659,9 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
         "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
         "bound_by": None if t_bytes is None else
         ("bytes" if t_bytes >= t_ops else "operations"),
-        "nnz_bound_ms": None if not mem_peak else
-        (A.nnz * (esize + 4) + (A.shape[0] + 1) * 4 + xy_bytes) / mem_peak * 1e3,
-        "stored_bound_ms": None if not mem_peak else
-        (stored_bytes + xy_bytes) / mem_peak * 1e3,
+        "read_bound_ms": ms_of(read_bytes),
+        "nnz_bound_ms": ms_of(nnz_bytes),
+        "stored_bound_ms": ms_of(stored_bytes + xy_bytes),
     }
     if row["bound_ms"]:
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
@@ -661,6 +674,11 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
 STEP_BANDED = [("A1bc", 1, 7), ("R1", 1, 1), ("P1m_s", 1, 1), ("BT_s", 1, 1),
                ("G_s", 1, 1), ("Ms", 2, 1), ("A3bc_s", 2, 6)]
 STEP_ELL = [("Kp", 1, 1), ("A2bc", 1, 1)]
+# The 54 ELL applies of one step of the f64 oracle config (ipcs_step_cg at
+# 25 / 20 PCG iterations and one pressure refinement): (op, m, count).
+ORACLE_STEP = [("R1", 1, 1), ("P1m", 1, 1), ("A1bc", 1, 26), ("Kp", 1, 1),
+               ("BT", 1, 1), ("A2bc", 1, 1), ("M", 1, 1), ("G", 1, 1),
+               ("A3bc_s", 2, 21)]
 # The nine operators of the ELL layout and the column count each is applied
 # to: every apply of the f64 oracle config, and of the f32 ELL config.
 ELL_OPS = [("A1bc", 1), ("A3bc_s", 2), ("A2bc", 1), ("Kp", 1), ("R1", 1),
@@ -705,12 +723,15 @@ def check_cg_kernels(cuda, meshes, pk, flush):
     def ell_case(airfoil, op, A, m, dtype):
         e = EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
         X = x_for(A, m, dtype, A.shape[0] + m)
-        xy_bytes = (A.shape[0] + A.shape[1]) * m * X.element_size()
+        # The kernel reads the slices (read_bound_ms); the bound counts the
+        # nonzeros alone, not the pads a slice stores.
         row = check_sparse_case(
             cuda, "ell_matmat", op, A, m, lambda: e.matmat(X),
             lambda v, x: ell_matmat_reference(e.cols, v, x), [e.vals, X],
-            e.nbytes + xy_bytes, e.vals.numel(), e.cols.shape[1], pk, flush,
-            stored_bytes=e.nbytes, airfoil=airfoil, K=e.cols.shape[1])
+            e.read_bytes(m), e.slices.vals.numel(), e.cols.shape[1], pk, flush,
+            stored_bytes=e.nbytes, nnz_bound=True, airfoil=airfoil,
+            K=e.cols.shape[1], lanes=e.slices.lanes, uniform=e.slices.uniform,
+            fill=e.slices.fill, ell_fill=A.nnz / e.vals.numel())
         rows["ell_matmat"].append(row)
         return row
 
@@ -735,24 +756,35 @@ def check_cg_kernels(cuda, meshes, pk, flush):
                 row = ell_case(airfoil, op, ell_mats[op], m, dtype)
                 if main and dtype == f32 and op in ("A2bc", "Kp"):
                     step["ell_matmat", op] = row
+                if main and dtype == f64:
+                    step["ell_oracle", op] = row
         del ell_mats
-    summary = {}
-    for kname, plan in (("banded_matmat", STEP_BANDED), ("ell_matmat", STEP_ELL)):
-        tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "nnz_bound_ms", "stored_bound_ms")}
+
+    def step_sums(kname, plan):
+        src = {"ms": "kernel_ms", **{k: k for k in (
+            "plain_ms", "library_ms", "bound_ms", "read_bound_ms", "nnz_bound_ms",
+            "stored_bound_ms")}}
+        tot = dict.fromkeys(src, 0.0)
         by_bytes = True
         for op, _, count in plan:
             r = step[kname, op]
-            for k, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-                           ("library_ms", "library_ms"), ("bound_ms", "bound_ms"),
-                           ("nnz_bound_ms", "nnz_bound_ms"),
-                           ("stored_bound_ms", "stored_bound_ms")):
-                tot[k] = None if tot[k] is None or r[src] is None else tot[k] + count * r[src]
+            for k in tot:
+                tot[k] = None if tot[k] is None or r[src[k]] is None else \
+                    tot[k] + count * r[src[k]]
             by_bytes &= r["bound_by"] == "bytes"
-        summary[kname] = dict(
-            tot, max_abs_err=max(r["max_abs_err"] for r in rows[kname]),
-            bound_by=("bytes" if by_bytes else "operations")
-            if tot["bound_ms"] is not None else None)
+        return dict(tot, applies=sum(c for _, _, c in plan),
+                    bound_by=("bytes" if by_bytes else "operations")
+                    if tot["bound_ms"] is not None else None)
+
+    summary = {}
+    for kname, plan in (("banded_matmat", STEP_BANDED), ("ell_matmat", STEP_ELL)):
+        summary[kname] = dict(step_sums(kname, plan),
+                              max_abs_err=max(r["max_abs_err"] for r in rows[kname]))
+    summary["ell_matmat"]["oracle_step"] = step_sums("ell_oracle", ORACLE_STEP)
+    emit({"phase": "kernels", "ell_step_sums": {
+        "production_f32": {k: v for k, v in summary["ell_matmat"].items()
+                           if k != "oracle_step"},
+        "oracle_f64": summary["ell_matmat"]["oracle_step"]}})
     emit({"phase": "kernels", "checked": ["banded_matmat", "ell_matmat"],
           "shapes": {k: len(v) for k, v in rows.items()}})
     return summary
@@ -779,7 +811,7 @@ def cg_step_bytes(dev, cfg):
         else:
             b = nbytes(v.inv_blocks if isinstance(v, BlockJacobi) else v)
         ops += counts.get(name, 1) * b
-    rest = (1 + pr) * nbytes(dev.A2inv) + dev.Kp.nbytes + pr * dev.A2bc.nbytes
+    rest = (1 + pr) * nbytes(dev.A2inv) + dev.Kp.slices.nbytes + pr * dev.A2bc.slices.nbytes
     rest += sum(nbytes(t) for t in vars(dev.conv).values() if isinstance(t, torch.Tensor))
     rest += sum(nbytes(getattr(dev, n)) for n in ("z_u", "z_p", "t1", "t2", "t3",
                                                    "drag_u", "drag_p", "lift_u",
@@ -861,8 +893,9 @@ def cg_solve(cuda, name, mesh, oracle, pk):
     return solver, out, row
 
 
-def cg_oracle(name, mesh, oracle):
-    """The oracle's own f64 ELL config on the card, held to the CSV."""
+def cg_oracle(name, mesh, oracle, profile=False):
+    """The oracle's own f64 ELL config on the card, held to the CSV; with
+    `profile`, 50 more steps under the profiler."""
     from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
 
     cfg = IPCSConfig(**ORACLE)
@@ -883,6 +916,8 @@ def cg_oracle(name, mesh, oracle):
     if not (abs(dd) <= ORACLE_ABS and abs(dl) <= ORACLE_ABS):
         raise AssertionError(f"{name}: f64 drag/lift differ from the oracle CSV by "
                              f"{dd:.3g} / {dl:.3g}, above {ORACLE_ABS}")
+    if profile:
+        profile_steps(solver, out["state"], path="cg_oracle")
 
 
 def cg_diag(name, mesh, oracle, f32_out, f32_ms):
@@ -994,7 +1029,7 @@ def main(argv=None) -> int:
             profile_steps(solver, out["state"], path="cg")
         del solver, out
     for name, (mesh, oracle) in finest.items():
-        cg_oracle(name, mesh, oracle)
+        cg_oracle(name, mesh, oracle, profile=name == AIRFOILS[0])
     if args.diag:
         for name, (mesh, oracle) in finest.items():
             cg_diag(name, mesh, oracle, *cg_rows[name])
@@ -1019,7 +1054,8 @@ def main(argv=None) -> int:
             "banded_matmat": "sums over the 18 banded applies of one ys930 finest "
                              "production CG step",
             "ell_matmat": "sums over the 2 ELL applies of one ys930 finest "
-                          "production CG step"}
+                          "production CG step (f32); oracle_step sums the 54 of "
+                          "one ys930 finest f64 oracle step"}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": f"meshdqn_tpu_torch/csrc/{src[k]}.cu",
          "replaces": replaces[k], "also_replaces": also.get(k, []),
@@ -1028,8 +1064,8 @@ def main(argv=None) -> int:
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
          "library_ms": s["library_ms"],
-         **{k: s[k] for k in ("nnz_bound_ms", "stored_bound_ms", "composed_ms",
-                              "singles_ms") if k in s},
+         **{k: s[k] for k in ("read_bound_ms", "nnz_bound_ms", "stored_bound_ms",
+                              "composed_ms", "singles_ms", "oracle_step") if k in s},
          **({"launches_by_form": by_form} if k == "matvec_group" else {}),
          "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()

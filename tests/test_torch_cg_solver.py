@@ -96,6 +96,29 @@ def test_operators_carried_across_step_like_jax(jax_runs, layout, prec):
 
 
 @pytest.mark.parametrize("prec", ["jacobi", "block"])
+def test_carried_ell_slices_equal_from_scipy(meshes, jax_runs, prec):
+    """The ELL kernel's slices of the operators carried across from JAX's
+    arrays (every operator of its ELL layout; Kp and A2bc of the banded
+    one) equal those EllMatrix.from_scipy packs from the port's own
+    matrices, which hold the same entries."""
+    from meshdqn_tpu_torch.ops.sparse import EllMatrix
+    from meshdqn_tpu_torch.solver.ipcs import cg_matrices
+
+    dev = cg_operators_from_numpy(jax_cg_leaves(jax_runs[prec][0].dev), "cpu",
+                                  torch.float64)
+    layout = "ell" if prec == "jacobi" else "banded"
+    mats = cg_matrices(meshes[1], IPCSConfig(**F64_CG, cg_layout=layout,
+                                             cg_precond=prec))["matrices"]
+    carried = {k: v for k, v in dev._asdict().items() if isinstance(v, EllMatrix)}
+    assert len(carried) == (9 if layout == "ell" else 2)
+    for name, e in carried.items():
+        ref = EllMatrix.from_scipy(mats[name], device="cpu", dtype=torch.float64)
+        assert e.slices.lanes == ref.slices.lanes, name
+        for f in ("cols", "vals", "offsets", "widths"):
+            assert torch.equal(getattr(e.slices, f), getattr(ref.slices, f)), (name, f)
+
+
+@pytest.mark.parametrize("prec", ["jacobi", "block"])
 def test_public_f64_solver_matches_jax(meshes, jax_runs, prec):
     """IPCSSolver(..., device='cpu') builds its own operators in its default
     banded layout.  Jacobi is held to JAX's ELL run: the pointwise

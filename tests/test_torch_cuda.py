@@ -6,6 +6,8 @@ on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import pytest
 import torch
 
@@ -258,22 +260,79 @@ def test_banded_row_blocks_of_any_multiple_of_8_rows(cuda, R, m):
     assert mv.relative_gap(y, yp) <= mv.gap_tolerance(bm.blocks.shape[2])
 
 
+ELL_CASES = [(2000, 2000, None), (777, 1500, None), (1500, 333, None),
+             (29768, 29768, 50), (25854, 25854, 56), (3796, 3796, 9)]
+
+
+@functools.lru_cache(maxsize=None)
+def _ell_matrix(R, C, K):
+    """sp.random at density 0.03 for K None; else banded rows of 1 ... K
+    entries (a quarter of them one entry, as Dirichlet rows), at least one
+    of K: at the finest meshes' sizes and widths of A1bc and Kp."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    if K is None:
+        return sp.random(R, C, density=0.03, random_state=R, format="csr")
+    rng = np.random.default_rng(R + K)
+    counts = rng.integers(K // 3, K + 1, R)
+    counts[rng.random(R) < 0.25] = 1
+    counts[R // 2] = K
+    rows = np.repeat(np.arange(R), counts)
+    cols = np.concatenate([np.sort((r + rng.choice(4 * K, c, replace=False)) % C)
+                           for r, c in enumerate(counts)])
+    return sp.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(R, C))
+
+
+def _warp_order(cols, vals, X):
+    """The one-warp-per-row ELL kernel's order, in torch on the card: lane l
+    chains entries l, l + 32, ... by fused multiply-adds from +0, then the
+    xor tree 16, 8, 4, 2, 1.  The FMA is CUDA's fma() through torch's
+    runtime-compiled elementwise ops (jiterator)."""
+    fma = torch.cuda.jiterator._create_jit_fn(
+        "template <typename T> T fma_op(T a, T b, T c) { return fma(a, b, c); }")
+    X2 = X.view(X.shape[0], -1)
+    R, K = cols.shape
+    acc = torch.zeros(R, 32, X2.shape[1], dtype=X.dtype, device=X.device)
+    for k in range(K):
+        a = acc[:, k % 32]
+        acc[:, k % 32] = fma(vals[:, k, None].expand_as(a), X2[cols[:, k].long()], a)
+    lane = torch.arange(32, device=X.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, 0].view((R,) + tuple(X.shape[1:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("R,C", [(2000, 2000), (777, 1500), (1500, 333)])
-def test_ell_matches_plain_and_repeats_bits(cuda, R, C, dtype, m):
-    import scipy.sparse as sp
+@pytest.mark.parametrize("R,C,K", ELL_CASES)
+def test_ell_matches_plain_and_repeats_bits(cuda, R, C, K, dtype, m):
+    """The sliced kernel against the plain version of the ELL arrays, and
+    bit-equal to the one-warp-per-row kernel's order, at the matrix's own
+    lane count and at 1 and 32 lanes a row, each with slices of their own
+    widths and uniform ones."""
+    import dataclasses
 
     from meshdqn_tpu_torch.ops import sparse as ell
 
-    A = sp.random(R, C, density=0.03, random_state=R, format="csr")
+    A = _ell_matrix(R, C, K)
     e = ell.EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
     g = torch.Generator(device="cpu").manual_seed(R + m)
     X = torch.randn((C,) if m == 1 else (C, m), generator=g, dtype=dtype).to(cuda)
+    before = ell.ell_matmat.launches
     y = e @ X
+    assert ell.ell_matmat.launches == before + 1
     assert y.shape == (R,) + tuple(X.shape[1:]) and y.dtype == dtype
     assert torch.equal(y, e @ X)
+    assert torch.equal(y, _warp_order(e.cols, e.vals, X))
+    for lanes in (e.slices.lanes, 1, 32):
+        for uniform in (False, True):
+            other = dataclasses.replace(e, slices=ell._pack(
+                e.cols.cpu().numpy(), e.vals.cpu().numpy(), C, device=cuda,
+                lanes=lanes, uniform=uniform))
+            assert other.slices.uniform or not uniform
+            assert torch.equal(y, other @ X)
     yp = ell.ell_matmat_reference(e.cols, e.vals, X)
     tol = mv.gap_tolerance(e.cols.shape[1], dtype)
     assert mv.relative_gap(y, yp) <= tol
@@ -290,20 +349,38 @@ def test_sparse_kernels_count_and_reject(cuda):
 
     cols = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
     vals = torch.ones(4, 3, device=cuda)
+    e = ell.EllMatrix(cols=cols, vals=vals, shape=(4, 5))
+    sl = e.slices
     band = dict(pad=0, g=8, shape=(8, 8))
     bm = bd.BandedMatrix(blocks=torch.ones(1, 8, 128, device=cuda), **band)
     x = torch.ones(8, device=cuda)
     before = ell.ell_matmat.launches, bd.banded_matmat.launches
-    ell.ell_matmat(cols, vals, torch.ones(5, device=cuda))
+    ell.ell_matmat(e, torch.ones(5, device=cuda))
     bd.banded_matmat(bm, x)
     assert (ell.ell_matmat.launches, bd.banded_matmat.launches) == (before[0] + 1,
                                                                     before[1] + 1)
     with pytest.raises(TypeError):  # cols must be int32
-        ell.ell_matmat(cols.long(), vals, torch.ones(5, device=cuda))
+        ell.EllMatrix(cols=cols.long(), vals=vals, shape=(4, 5))
     with pytest.raises(TypeError):  # X's dtype must match vals'
-        ell.ell_matmat(cols, vals, torch.ones(5, device=cuda, dtype=torch.float64))
+        ell.ell_matmat(e, torch.ones(5, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):  # m = 3
-        ell.ell_matmat(cols, vals, torch.ones(5, 3, device=cuda))
+        ell.ell_matmat(e, torch.ones(5, 3, device=cuda))
+    with pytest.raises(ValueError):  # X on another device than the slices
+        ell.ell_matmat(e, torch.ones(5))
+    with pytest.raises(ValueError):  # X of another shape
+        ell.ell_matmat(e, torch.ones(6, device=cuda))
+    with pytest.raises(ValueError):  # slices on the host, arrays on the card
+        ell.EllMatrix(cols=cols, vals=vals, shape=(4, 5), slices=ell.EllSlices.from_arrays(
+            cols.cpu().numpy(), vals.cpu().numpy(), 5, device="cpu"))
+    with pytest.raises(ValueError):  # slice arrays on two devices
+        ell.EllSlices(cols=sl.cols.cpu(), vals=sl.vals, offsets=sl.offsets,
+                      widths=sl.widths, lanes=sl.lanes, n_rows=4, n_cols=5)
+    with pytest.raises(ValueError):  # malformed slices: offsets off by a slice
+        ell.EllSlices(cols=sl.cols, vals=sl.vals, offsets=sl.offsets + 32,
+                      widths=sl.widths, lanes=sl.lanes, n_rows=4, n_cols=5)
+    with pytest.raises(ValueError):  # malformed slices: a column past X
+        ell.EllMatrix(cols=cols + 5, vals=vals, shape=(4, 5))
+    assert ell.ell_matmat.launches == before[0] + 1
     with pytest.raises(TypeError):  # bf16 blocks take f32 X
         b16 = bd.BandedMatrix(blocks=torch.ones(1, 8, 128, device=cuda,
                                                 dtype=torch.bfloat16), **band)
