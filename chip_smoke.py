@@ -5,12 +5,17 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py [--diag]
 
-Two paths, each driven through IPCSSolver, the entry point a user calls:
+The paths, each driven through IPCSSolver, the entry point a user calls:
 
 * the fused f32 solve, 5000 steps on each of the two airfoil packs in
   checkpoints/, each step three launches of the matvec kernel's grouped
   form (meshdqn_tpu_torch/csrc/matvec.cu: the seven dense applies and the
   elementwise work around them);
+* the other dense modes on both packs, 5000 steps each: 'f64' (the
+  default IPCSConfig(), the unfused step: f64 inverses through
+  torch.matmul, 6 ELL launches a step), 'mixed' (5 single matvec and 8 ELL
+  launches a step), f32 with fused=False (3 and 6) and 'df32' (three
+  launches of the matvec kernel's split form: f32 high and bf16 low limbs);
 * the large-mesh CG solve at the production config (f32, banded layout,
   block-Jacobi PCG, 6 / 5 iterations), 5000 steps on the finest generated
   mesh of each airfoil (meshdqn_tpu_torch/data/*.npz), every sparse product
@@ -41,7 +46,14 @@ The kernels are built from source at first use.  Phases, one JSON line each
              and the f64 oracle step's 54.  The matvec
              kernel's grouped form, per pack and launch, must also equal the
              composition of single matvec launches and torch's elementwise
-             ops bit for bit, and is timed beside that composition
+             ops bit for bit, and is timed beside that composition.  Its
+             split form ('df32'), per pack and launch, on the production
+             limbs and on a synthetic low limb as large as the high one
+             (dropping the low limbs must fail the check there), with zero
+             low limbs equal to the f32 grouped launch.  Sparse rows also
+             hold the gap over the rows that are not identity (Dirichlet)
+             rows; the ELL kernel also at the unfused step's operators on
+             both packs, f32 and f64
   solve      per pack: the fused f32 solve from rest with the launch
              counters zeroed (3 grouped launches a step and no single one,
              asserted); drag/lift within 1e-3 of the pack's f64 values
@@ -51,6 +63,13 @@ The kernels are built from source at first use.  Phases, one JSON line each
   profile    50 steps of a path under torch.profiler: device busy share,
              time by kernel and the port's kernels' sums (fused, then CG)
   f64        per pack: the fused solve in f64 through the plain products
+  dense_f64, dense_mixed, dense_f32, df32
+             per pack: 5000 steps from rest of each mode with the counters
+             zeroed, its launches asserted; final drag and lift within 1e-3
+             of the pack (ys930's df32 lift printed only), dense_f64 every
+             snapshot within 1e-8; a profile row of each mode (ys930);
+             df32_vs_f32 sets both packs' fused f32 and df32 errors side
+             by side
   cg_solve   per finest mesh: the production CG solve, 5000 steps from rest
              with the counters zeroed (18 banded and 2 ELL launches a step,
              asserted, and no plain-version call); final drag and lift within
@@ -359,9 +378,9 @@ def check_grouped(cuda, meshes, mem_peak, flop_peak, flush, single_rows):
 
 
 def solve_pack(cuda, name, mesh, z, meta, mem_peak):
-    from meshdqn_tpu_torch.solver import FlowState, IPCSConfig, IPCSSolver
+    from meshdqn_tpu_torch.solver import FlowState, IPCSSolver
 
-    cfg = IPCSConfig(mu=meta["mu"], rho=meta["rho"], dt=meta["dt"], precision="f32")
+    cfg = pack_config(meta, precision="f32")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver = IPCSSolver(mesh, cfg)
@@ -437,10 +456,9 @@ def solve_f64(cuda, name, mesh, z, meta, f32_row):
     plain version (the kernel is f32 only): it separates the f32 step's
     rounding from any bias of the port's discretisation."""
     from meshdqn_tpu_torch.ops.matvec import matvec_reference
-    from meshdqn_tpu_torch.solver import (FlowState, IPCSConfig,
-                                          build_fused_operators, fused_step)
+    from meshdqn_tpu_torch.solver import FlowState, build_fused_operators, fused_step
 
-    cfg = IPCSConfig(mu=meta["mu"], rho=meta["rho"], dt=meta["dt"], precision="f32")
+    cfg = pack_config(meta, precision="f32")
     dev, nu, npr, _ = build_fused_operators(mesh, cfg, device=cuda,
                                             dtype=torch.float64)
     state = FlowState(u=torch.zeros(nu, dtype=torch.float64, device=cuda),
@@ -479,11 +497,15 @@ def profile_steps(solver, state, path, n=50):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # The same n steps first without the profiler, for its wall time.
+    # The same n steps first without the profiler, for its wall time and
+    # the host's time to issue them (no wait on the device in between).
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     solver.evolve(state, n)
+    issue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -505,7 +527,12 @@ def profile_steps(solver, state, path, n=50):
             by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
             kernels += ev.count
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # Names cut to 80 characters, the times of names that share a cut summed
+    # (template instances of one kernel often do).
+    short = {}
+    for k, v in by_name.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
     # The port's own kernels, each summed over its template instances.
     ours = {k: sum(v for name, v in by_name.items() if k in name) / n
             for k in ("group_kernel", "banded_tiles_kernel", "ell_kernel")}
@@ -515,12 +542,13 @@ def profile_steps(solver, state, path, n=50):
     unprofiled_ms = start.elapsed_time(end)
     emit({"phase": "profile", "path": path, "steps": n, "wall_ms_per_step": wall_ms / n,
           "unprofiled_wall_ms_per_step": unprofiled_ms / n,
+          "host_issue_ms_per_step": issue_ms / n,
           "device_busy_ms_per_step": busy / n if busy else None,
           "device_ops_per_step": kernels / n,
           "device_busy_share": busy / wall_ms if busy else None,
           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
           "port_kernels_ms_per_step": ours,
-          "top_ms_per_step": {k[:80]: v / n for k, v in top}})
+          "top_ms_per_step": {k: v / n for k, v in top}})
 
 
 # ---------------------------------------------------------------------------
@@ -566,16 +594,18 @@ def grouped_bits(name, solver, state, n=100):
 
 # Every launch counter at 0: a path's expectation names what it launches.
 NO_LAUNCHES = {"matvec": 0, "matvec_dual": 0, "step_ustar": 0, "step_pressure": 0,
-               "step_velocity": 0, "banded_matmat": 0, "ell_matmat": 0,
+               "step_velocity": 0, "step_ustar_df32": 0, "step_pressure_df32": 0,
+               "step_velocity_df32": 0, "banded_matmat": 0, "ell_matmat": 0,
                "banded_plain_calls": 0, "ell_plain_calls": 0}
 GROUPED = ("step_ustar", "step_pressure", "step_velocity")
+SPLIT = ("step_ustar_df32", "step_pressure_df32", "step_velocity_df32")
 
 
 def zero_counters():
     from meshdqn_tpu_torch.ops import banded, matvec, sparse
 
     for fn in (matvec.matvec, matvec.matvec_dual, banded.banded_matmat,
-               sparse.ell_matmat, *(getattr(matvec, k) for k in GROUPED)):
+               sparse.ell_matmat, *(getattr(matvec, k) for k in GROUPED + SPLIT)):
         fn.launches = 0
     banded.banded_matmat_reference.calls = 0
     sparse.ell_matmat_reference.calls = 0
@@ -586,7 +616,7 @@ def read_counters():
 
     return {"matvec": matvec.matvec.launches,
             "matvec_dual": matvec.matvec_dual.launches,
-            **{k: getattr(matvec, k).launches for k in GROUPED},
+            **{k: getattr(matvec, k).launches for k in GROUPED + SPLIT},
             "banded_matmat": banded.banded_matmat.launches,
             "ell_matmat": sparse.ell_matmat.launches,
             "banded_plain_calls": banded.banded_matmat_reference.calls,
@@ -601,12 +631,27 @@ def csr_tensor(A, device, dtype):
         torch.as_tensor(A.data), size=A.shape, dtype=dtype, device=device)
 
 
+def interior_rows(A, device):
+    """A bool mask of the rows of square A that are not unit identity rows
+    (the Dirichlet rows of a BC-eliminated system), or None when A has
+    none."""
+    if A.shape[0] != A.shape[1]:
+        return None
+    A = A.tocsr()
+    ident = (np.diff(A.indptr) == 1) & (A.diagonal() == 1)
+    return torch.as_tensor(~ident, device=device) if ident.any() else None
+
+
 def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
                       read_bytes, entries, terms, pk, flush, *, stored_bytes,
-                      nnz_bound=False, **extra):
-    """One sparse kernel at one shape: gap to the plain version, controls,
+                      nnz_bound=False, controls=None, **extra):
+    """One sparse kernel at one shape: gap to the plain version, over all
+    rows and over the rows off the boundary (those of A that are not
+    identity rows: the identity rows dominate ||y|| on A3bc_s), controls,
     repeated bits, times and bounds.  `inputs` are the plain version's
-    floating operands (matrix storage and X), which the controls round;
+    floating operands (matrix storage and X), which the controls round
+    (`controls`, name -> inputs, replaces the rounded inputs where rounding
+    is part of the product);
     `read_bytes` what one product moves (the operator bytes the kernel
     reads, X read once, Y written once); `stored_bytes` the layout's stored
     operator bytes; `entries` the matrix entries the kernel multiplies,
@@ -629,12 +674,17 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
     if not gap <= tol:
         raise AssertionError(f"{kernel} {op}: ||y - plain|| / ||plain|| = {gap:.3g} "
                              f"above {tol:.3g}")
-    controls = {
-        f"control_{name}_gap": mv.relative_gap(plain_fn(*(
-            mv.round_mantissa(t.float() if t.dtype == torch.bfloat16 else t, bits)
-            for t in inputs)), yp)
-        for name, bits in (("tf32", 10), ("bf16", 7))
-    }
+    interior = interior_rows(A, cuda)
+    gap_in = gap if interior is None else mv.relative_gap(y, yp, interior)
+    if not gap_in <= tol:
+        raise AssertionError(f"{kernel} {op}: the gap over the rows off the boundary, "
+                             f"{gap_in:.3g}, is above {tol:.3g}")
+    if controls is None:
+        controls = {name: [mv.round_mantissa(t.float() if t.dtype == torch.bfloat16
+                                             else t, bits) for t in inputs]
+                    for name, bits in (("tf32", 10), ("bf16", 7))}
+    controls = {f"control_{name}_gap": mv.relative_gap(plain_fn(*args), yp)
+                for name, args in controls.items()}
     if not min(controls.values()) > tol:
         raise AssertionError(f"{kernel} {op}: a control passes the check: {controls}")
     Acsr = csr_tensor(A, cuda, xdt)
@@ -651,7 +701,9 @@ def check_sparse_case(cuda, kernel, op, A, m, kernel_fn, plain_fn, inputs,
         "phase": "kernels", "kernel": kernel, "op": op, "shape": list(A.shape),
         "m": m, "dtype": str(inputs[0].dtype).replace("torch.", ""), **extra,
         "nnz": int(A.nnz), "stored_MB": stored_bytes / 1e6, "read_MB": read_bytes / 1e6,
-        "rel_gap": gap, "tol": tol, **controls,
+        "rel_gap": gap, "rel_gap_interior": gap_in,
+        "interior_rows": None if interior is None else int(interior.sum()),
+        "tol": tol, **controls,
         "max_abs_err": (y - yp).abs().max().item(),
         "kernel_ms": time_ms(kernel_fn, flush),
         "plain_ms": time_ms(lambda: plain_fn(*inputs), flush),
@@ -709,12 +761,20 @@ def check_cg_kernels(cuda, meshes, pk, flush):
         X = x_for(A, m, xdt, A.shape[0] + m)
         kw = dict(pad=bm.pad, g=bm.g, aligned=aligned, n_rows=A.shape[0])
         B, R, W = bm.blocks.shape
+        controls = None
+        if dtype == torch.bfloat16 and not aligned:
+            # x and each product are rounded to bf16 here, as the JAX
+            # package's banded_matmat rounds them; the controls keep x in f32
+            # with exact products, and round x with exact products.
+            b32 = bm.blocks.float()
+            controls = {"x_f32": [b32, X], "exact_products": [b32, X.bfloat16().float()]}
         # The kernel reads the packed tiles; the bound counts their bytes.
         row = check_sparse_case(
             cuda, "banded_matmat", op, A, m, lambda: bm.matmat(X),
             lambda b, x: banded_matmat_reference(b, x, **kw), [bm.blocks, X],
             bm.read_bytes(m), bm.tiles.values.numel(), W, pk, flush,
-            stored_bytes=bm.nbytes, airfoil=airfoil, aligned128=aligned,
+            stored_bytes=bm.nbytes, controls=controls, airfoil=airfoil,
+            aligned128=aligned,
             blocks=[B, R, W], g=bm.g, pad=bm.pad, n_tiles=bm.tiles.values.shape[0],
             tile_occupancy=bm.tiles.occupancy)
         rows["banded_matmat"].append(row)
@@ -955,6 +1015,253 @@ def cg_diag(name, mesh, oracle, f32_out, f32_ms):
     })
 
 
+# ---------------------------------------------------------------------------
+# The dense modes besides the fused f32 step: 'df32' (the matvec kernel's
+# split form), 'f64', 'mixed' and f32 unfused (the matvec kernel's single
+# form for f32 inverses, the ELL kernel for every sparse product)
+# ---------------------------------------------------------------------------
+
+
+def pack_config(meta, **kw):
+    from meshdqn_tpu_torch.solver import IPCSConfig
+
+    return IPCSConfig(mu=meta["mu"], rho=meta["rho"], dt=meta["dt"], **kw)
+
+
+def split_forms(mv):
+    """The 'df32' step's three split launches: (form, split wrapper, plain
+    version, f32 grouped wrapper, the high operands' names, the low limbs'
+    names, the vectors' names)."""
+    return [
+        ("ustar", mv.step_ustar_df32, mv.step_ustar_df32_reference, mv.step_ustar,
+         ("F1u", "F1p", "A1Z", "rho", "k1"), ("F1u", "F1p", "A1Z", "k1"),
+         ("u", "p", "c")),
+        ("pressure", mv.step_pressure_df32, mv.step_pressure_df32_reference,
+         mv.step_pressure, ("F2p", "F2u", "k2"), ("F2p", "F2u", "k2"), ("p", "u_star")),
+        ("velocity", mv.step_velocity_df32, mv.step_velocity_df32_reference,
+         mv.step_velocity, ("F3s", "F3p", "k3"), ("F3s", "F3p", "k3"),
+         ("u_star", "dp")),
+    ]
+
+
+def check_split(cuda, packs, mem_peak, flop_peak, flush):
+    """The matvec kernel's split form, per pack and launch, on the pack's
+    production limbs (built as the solver builds them) and on a synthetic
+    low limb as large as the high one (at 2^-24 a dropped or misrouted low
+    term would hide below f32 rounding): within gap_tolerance of its plain
+    version (both limbs' terms), the plain version without its low limbs
+    outside it on the synthetic limbs, zero limbs giving the f32 grouped
+    launch's values exactly, repeated bits; on the production limbs timed
+    beside the bound, the plain version, the same step through torch with
+    the low limbs widened to f32 beforehand (composed_ms) and the f32
+    grouped launch.  Returns the summary over one ys930 step."""
+    from meshdqn_tpu_torch.ops import matvec as mv
+    from meshdqn_tpu_torch.solver import build_fused_operators
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+           "composed_ms": 0.0, "f32_grouped_ms": 0.0}
+    worst = 0.0
+    for pack, (mesh, _, meta) in packs.items():
+        (hi, lo), *_ = build_fused_operators(
+            mesh, pack_config(meta, precision="df32"), device=cuda, split=True)
+        ns, npr = hi.F3s.shape[0], hi.F2p.shape[0]
+        nu = 2 * ns
+        g = torch.Generator(device=cuda).manual_seed(ns * 5 + npr)
+        r = lambda *shape: torch.randn(*shape, device=cuda, generator=g)
+        vecs = {"u": r(nu), "p": r(npr), "c": r(nu), "u_star": r(nu), "dp": r(npr)}
+        rms = lambda t: t.double().pow(2).mean().sqrt().item()
+        synthetic = {k: (rms(getattr(hi, k)) * r(*getattr(hi, k).shape)).to(
+            getattr(lo, k).dtype) for k in lo._fields}
+        for form, split, plain, grouped, his, los, xs in split_forms(mv):
+            hi_args = [getattr(hi, n) for n in his]
+            x_args = [vecs[n] for n in xs]
+            rows_of = lambda limbs: hi_args + [limbs[n] for n in los] + x_args
+            terms = {"ustar": 2 * nu + npr, "pressure": npr + nu,
+                     "velocity": ns + npr}[form]
+            tol = mv.gap_tolerance(2 * terms)
+            as_cat = lambda y: torch.cat(y) if isinstance(y, tuple) else y
+            zero = {n: torch.zeros_like(getattr(lo, n)) for n in los}
+            y0 = as_cat(split(*rows_of(zero)))
+            if not torch.equal(y0, as_cat(grouped(*hi_args, *x_args))):
+                raise AssertionError(f"matvec_group_df32 {form} {pack}: zero low limbs "
+                                     "do not give the f32 grouped launch's values")
+            for case, limbs in (("production", lo._asdict()), ("synthetic", synthetic)):
+                args = rows_of(limbs)
+                y = as_cat(split(*args))
+                torch.cuda.synchronize()
+                if not torch.equal(y, as_cat(split(*args))):
+                    raise AssertionError(f"matvec_group_df32 {form} {pack} {case}: bits "
+                                         "differ between runs")
+                yp = as_cat(plain(*args))
+                gap = mv.relative_gap(y, yp)
+                if not gap <= tol:
+                    raise AssertionError(f"matvec_group_df32 {form} {pack} {case}: "
+                                         f"gap {gap:.3g} above {tol:.3g}")
+                drop = mv.relative_gap(as_cat(plain(*rows_of(zero))), yp)
+                if case == "synthetic" and not drop > tol:
+                    raise AssertionError(f"matvec_group_df32 {form} {pack}: dropping the "
+                                         f"low limbs passes the check ({drop:.3g})")
+                row = {"phase": "kernels", "kernel": "matvec_group_df32", "form": form,
+                       "pack": pack, "limbs": case, "rel_gap": gap, "tol": tol,
+                       "control_drop_lo_gap": drop,
+                       "zero_lo_equals_f32_grouped": True,
+                       "max_abs_err": (y - yp).abs().max().item()}
+                if case == "production":
+                    wide = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+                    # Each operand read once, each output (p' and dp in the
+                    # pressure launch) written once; a multiply-add per entry
+                    # of each limb and right-hand side (F3s takes two).
+                    nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * y.numel()
+                    flops = 4 * sum(getattr(hi, n).numel() * (2 if n == "F3s" else 1)
+                                    for n in his if getattr(hi, n).dim() >= 2)
+                    t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
+                    t_ops = flops / flop_peak * 1e3 if flop_peak else None
+                    row.update({
+                        "kernel_ms": time_ms(lambda: split(*args), flush),
+                        "plain_ms": time_ms(lambda: plain(*args), flush),
+                        "composed_ms": time_ms(lambda: plain(*wide), flush),
+                        "f32_grouped_ms": time_ms(lambda: grouped(*hi_args, *x_args),
+                                                  flush),
+                        "library_ms": None,
+                        "step_MB": nbytes / 1e6,
+                        "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
+                        "bound_by": None if t_bytes is None else
+                        ("bytes" if t_bytes >= t_ops else "operations"),
+                    })
+                    if row["bound_ms"]:
+                        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+                    if pack == PACKS[0]:
+                        for k in ("plain_ms", "composed_ms", "f32_grouped_ms",
+                                  "bound_ms"):
+                            tot[k] = None if tot[k] is None or row[k] is None else \
+                                tot[k] + row[k]
+                        tot["ms"] += row["kernel_ms"]
+                emit(row)
+                worst = max(worst, row["max_abs_err"])
+        del hi, lo, synthetic
+    return dict(tot, max_abs_err=worst,
+                bound_by="bytes" if tot["bound_ms"] is not None else None)
+
+
+# The unfused step's sparse products (ipcs_step): operator, dtype by mode.
+UNFUSED_ELL = ("R1", "P1m", "Kp", "BT", "M", "G")
+UNFUSED_STEPS = {  # mode: [(op, dtype, count)] of one step
+    "dense_f64": [(op, "f64", 1) for op in UNFUSED_ELL],
+    "dense_mixed": [("R1", "f32", 1), ("P1m", "f32", 1), ("Kp", "f64", 1),
+                    ("BT", "f64", 1), ("M", "f32", 1), ("G", "f32", 1),
+                    ("A2bc", "f64", 2)],
+    "dense_f32": [(op, "f32", 1) for op in UNFUSED_ELL],
+}
+
+
+def check_unfused_ell(cuda, packs, pk, flush):
+    """ell_matmat at the unfused step's shapes on each pack: its six sparse
+    operators in f32 and f64 and A2bc (the 'mixed' refinement) in f64.
+    Returns the sums over one ys930 step of each unfused mode."""
+    from meshdqn_tpu_torch.fem.assembly import apply_bc_symmetric
+    from meshdqn_tpu_torch.ops.sparse import EllMatrix, ell_matmat_reference
+    from meshdqn_tpu_torch.solver.ipcs import assemble
+
+    rows = {}
+    for pack, (mesh, _, meta) in packs.items():
+        _, ops = assemble(mesh, pack_config(meta))
+        mats = {"R1": ops.R1, "P1m": (ops.B - ops.Bn).tocsr(), "Kp": ops.Kp,
+                "BT": ops.B.T.tocsr(), "M": ops.M, "G": ops.G,
+                "A2bc": apply_bc_symmetric(ops.A2, ops.p_bc_mask)}
+        for name, dtype in [(op, dt) for op in UNFUSED_ELL for dt in ("f32", "f64")] + [
+                ("A2bc", "f64")]:
+            A = mats[name]
+            tdt = torch.float32 if dtype == "f32" else torch.float64
+            e = EllMatrix.from_scipy(A, device=cuda, dtype=tdt)
+            gen = torch.Generator(device=cuda).manual_seed(A.shape[0] + A.shape[1])
+            X = torch.randn(A.shape[1], device=cuda, dtype=tdt, generator=gen)
+            rows[pack, name, dtype] = check_sparse_case(
+                cuda, "ell_matmat", name, A, 1, lambda: e.matmat(X),
+                lambda v, x: ell_matmat_reference(e.cols, v, x), [e.vals, X],
+                e.read_bytes(1), e.slices.vals.numel(), e.cols.shape[1], pk, flush,
+                stored_bytes=e.nbytes, nnz_bound=True, pack=pack, path="unfused",
+                K=e.cols.shape[1], lanes=e.slices.lanes, uniform=e.slices.uniform)
+    sums = {}
+    for mode, plan in UNFUSED_STEPS.items():
+        tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for op, dtype, count in plan:
+            r = rows[PACKS[0], op, dtype]
+            for k, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                           ("library_ms", "library_ms"), ("bound_ms", "bound_ms")):
+                tot[k] = None if tot[k] is None or r[src] is None else \
+                    tot[k] + count * r[src]
+        sums[mode] = dict(tot, applies=sum(c for _, _, c in plan))
+    emit({"phase": "kernels", "ell_unfused_step_sums": sums})
+    return sums
+
+
+# Per dense mode: (config overrides, launches a step by counter).
+DENSE_MODES = {
+    "dense_f64": ({}, {"ell_matmat": 6}),
+    "dense_mixed": ({"precision": "mixed"}, {"matvec": 5, "ell_matmat": 8}),
+    "dense_f32": ({"precision": "f32", "fused": False},
+                  {"matvec": 3, "ell_matmat": 6}),
+    "df32": ({"precision": "df32"}, {k: 1 for k in SPLIT}),
+}
+SNAP_F64_REL = 1e-8  # dense_f64 against the pack's f64 snapshots
+# The JAX package's df32 final drag / lift errors on its TPU
+# (meshdqn_tpu/solver/ipcs.py:36-41), printed beside the port's only.
+JAX_TPU_DF32 = {"ys930": [2.2e-5, 1.6e-3], "ah93w145": [1.2e-5, 1.2e-4]}
+
+
+def dense_phase(cuda, mode, name, mesh, z, meta, f32_row):
+    """One dense mode's 5000-step solve from rest through IPCSSolver with
+    the counters zeroed: its launches asserted, drag and lift against the
+    pack's f64 values (1e-3 at the end; for 'f64' also 1e-8 at every
+    snapshot; for 'df32' ys930's lift printed, not asserted, see PERF.md),
+    printed beside the fused f32 solve's errors from this call."""
+    from meshdqn_tpu_torch.solver import FlowState, IPCSSolver
+
+    overrides, per_step = DENSE_MODES[mode]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = IPCSSolver(mesh, pack_config(meta, **overrides))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.device.type != "cuda":
+        raise AssertionError(f"{mode} {name}: solver landed on {solver.device}")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    solver.evolve(FlowState(
+        u=1e-3 * torch.randn(solver.ndofs_u, device=cuda, generator=g).to(
+            solver.work_dtype),
+        p=torch.zeros(solver.ndofs_p, device=cuda, dtype=solver.pressure_dtype)), 20)
+    out, ms, host_ms, counts = timed_solve(solver, STEPS, SAVE)
+    expect = {**NO_LAUNCHES, **{k: n * STEPS for k, n in per_step.items()}}
+    if counts != expect:
+        raise AssertionError(f"{mode} {name}: launches {counts}, expected {expect}")
+    check_finite(f"{mode} {name}", solver, out)
+    st = out["state"]
+    if st.u.dtype != solver.work_dtype or st.p.dtype != solver.pressure_dtype:
+        raise AssertionError(f"{mode} {name}: state dtypes {st.u.dtype}, {st.p.dtype}")
+    derr = np.abs(out["snap_drags"] / z["gt_drag"] - 1)
+    lerr = np.abs(out["snap_lifts"] / z["gt_lift"] - 1)
+    row = {"phase": mode, "pack": name, "setup_s": setup_s, "ms_per_step": ms,
+           "host_ms_per_step": host_ms, "launches": counts,
+           "work_dtype": str(solver.work_dtype), "pressure_dtype": str(solver.pressure_dtype),
+           "snap_drags": out["snap_drags"].tolist(), "snap_lifts": out["snap_lifts"].tolist(),
+           "drag_rel_err": derr.tolist(), "lift_rel_err": lerr.tolist(),
+           "fused_f32_drag_lift_rel_err": [f32_row["drag_rel_err"][-1],
+                                           f32_row["lift_rel_err"][-1]]}
+    if mode == "df32":
+        row["jax_tpu_df32_drag_lift_rel_err"] = JAX_TPU_DF32[name]
+    emit(row)
+    gated = [("drag", derr[-1])]
+    if mode != "df32" or name != "ys930":
+        gated.append(("lift", lerr[-1]))
+    for what, err in gated:
+        if not err < GATE:
+            raise AssertionError(f"{mode} {name}: final {what} error {err:.3g} above {GATE}")
+    if mode == "dense_f64" and not (derr.max() < SNAP_F64_REL and lerr.max() < SNAP_F64_REL):
+        raise AssertionError(f"{mode} {name}: snapshots {derr.max():.3g} / {lerr.max():.3g} "
+                             f"from the pack's f64 values, above {SNAP_F64_REL}")
+    return solver, out, row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diag", action="store_true",
@@ -990,8 +1297,10 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2**20 // 4, device=cuda)  # > the 50 MB L2
     summary = check_kernels(cuda, {n: p[0] for n, p in packs.items()},
                             pk[0], pk[1], flush)
+    summary["matvec_group_df32"] = check_split(cuda, packs, pk[0], pk[1], flush)
     summary.update(check_cg_kernels(cuda, {n: f[0] for n, f in finest.items()},
                                     pk, flush))
+    summary["ell_matmat"]["unfused_steps"] = check_unfused_ell(cuda, packs, pk, flush)
     del flush
 
     # The fused path (first slice).
@@ -1017,6 +1326,32 @@ def main(argv=None) -> int:
     for name, (mesh, z, meta) in packs.items():
         solve_f64(cuda, name, mesh, z, meta, rows[name])
 
+    # The other dense modes: 'f64' (IPCSConfig()), 'mixed', f32 unfused and
+    # 'df32'.
+    by_split = {k: 0 for k in SPLIT}
+    dense_rows = {}
+    for mode in DENSE_MODES:
+        for name, (mesh, z, meta) in packs.items():
+            solver, out, row = dense_phase(cuda, mode, name, mesh, z, meta, rows[name])
+            dense_rows[mode, name] = row
+            counted = dict(row["launches"],
+                           matvec_group_df32=sum(row["launches"][k] for k in SPLIT))
+            for k in ("matvec", "ell_matmat", "matvec_group_df32"):
+                if counted[k]:
+                    launches[k] += counted[k]
+                    by_path[k][mode] = by_path[k].get(mode, 0) + counted[k]
+            for k in SPLIT:
+                by_split[k] += counted[k]
+            if name == PACKS[0]:
+                profile_steps(solver, out["state"], path=mode)
+            del solver, out
+    emit({"phase": "df32_vs_f32", "final_rel_err": {
+        name: {"fused_f32": dense_rows["df32", name]["fused_f32_drag_lift_rel_err"],
+               "df32": [dense_rows["df32", name]["drag_rel_err"][-1],
+                        dense_rows["df32", name]["lift_rel_err"][-1]],
+               "jax_tpu_df32": JAX_TPU_DF32[name]}
+        for name in packs}})
+
     # The large-mesh CG path.
     cg_rows = {}
     for name, (mesh, oracle) in finest.items():
@@ -1035,9 +1370,10 @@ def main(argv=None) -> int:
             cg_diag(name, mesh, oracle, *cg_rows[name])
 
     src = {"matvec": "matvec", "matvec_dual": "matvec", "matvec_group": "matvec",
-           "banded_matmat": "banded", "ell_matmat": "ell"}
+           "matvec_group_df32": "matvec", "banded_matmat": "banded", "ell_matmat": "ell"}
     replaces = {"matvec": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_group": "meshdqn_tpu/ops/pallas_kernels.py:124",
+                "matvec_group_df32": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134",
                 "banded_matmat": "meshdqn_tpu/ops/pallas_kernels.py:250",
                 "ell_matmat": "meshdqn_tpu/ops/pallas_kernels.py:39"}
@@ -1050,12 +1386,18 @@ def main(argv=None) -> int:
                             "step; composed_ms times the same step as seven single "
                             "launches and torch's elementwise ops, singles_ms sums "
                             "the single launches' own times",
+            "matvec_group_df32": "sums over the three split launches of one ys930 "
+                                 "df32 step on the production limbs; composed_ms "
+                                 "times the same step through torch with the low "
+                                 "limbs widened to f32 beforehand, f32_grouped_ms "
+                                 "the f32 grouped launches on the high limbs",
             "matvec_dual": "sums over the seven applies of one ys930 fused step",
             "banded_matmat": "sums over the 18 banded applies of one ys930 finest "
                              "production CG step",
             "ell_matmat": "sums over the 2 ELL applies of one ys930 finest "
                           "production CG step (f32); oracle_step sums the 54 of "
-                          "one ys930 finest f64 oracle step"}
+                          "one ys930 finest f64 oracle step, unfused_steps the "
+                          "6 or 8 of one ys930 pack step of each unfused mode"}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": f"meshdqn_tpu_torch/csrc/{src[k]}.cu",
          "replaces": replaces[k], "also_replaces": also.get(k, []),
@@ -1065,8 +1407,10 @@ def main(argv=None) -> int:
          "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
          "library_ms": s["library_ms"],
          **{k: s[k] for k in ("read_bound_ms", "nnz_bound_ms", "stored_bound_ms",
-                              "composed_ms", "singles_ms", "oracle_step") if k in s},
+                              "composed_ms", "singles_ms", "f32_grouped_ms",
+                              "oracle_step", "unfused_steps") if k in s},
          **({"launches_by_form": by_form} if k == "matvec_group" else {}),
+         **({"launches_by_form": by_split} if k == "matvec_group_df32" else {}),
          "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()
     ]})

@@ -14,8 +14,8 @@ from .ops.banded import BandedMatrix
 from .ops.cg import BlockJacobi
 from .ops.convection import ConvectionKernel
 from .ops.sparse import EllMatrix
-from .solver.fused import FusedOperators
-from .solver.ipcs import BandedCGOperators, CGOperators
+from .solver.fused import FusedOperators, SplitLow
+from .solver.ipcs import BandedCGOperators, CGOperators, DeviceOperators
 
 CONV_FIELDS = ("cell_dofs", "phi", "gphys", "wdet", "ndofs")
 
@@ -81,3 +81,40 @@ def cg_operators_from_numpy(arrays: dict, device, dtype=torch.float64):
     cls = BandedCGOperators if "vert_pos" in arrays else CGOperators
     return cls(**{name: _leaf(name, arrays[name], device, dtype)
                   for name in cls._fields})
+
+
+def split_low_from_numpy(arrays: dict, device) -> SplitLow:
+    """The 'df32' low limbs from the JAX package's SplitLow leaves by field:
+    matrix limbs stay bf16 (ml_dtypes' bfloat16 from JAX, widened to f32 in
+    numpy and narrowed again, which is exact), vector limbs f32."""
+    return SplitLow(**{name: _blocks(np.asarray(arrays[name]), device, torch.float32)
+                       for name in SplitLow._fields})
+
+
+def device_operators_from_numpy(arrays: dict, device) -> DeviceOperators:
+    """The port's DeviceOperators (the unfused step) from the JAX package's
+    leaves by field, each in its own dtype (f32 and f64 mix in 'mixed'):
+
+    * an EllMatrix as {"cols", "vals", "shape"}, vals in their dtype;
+    * None where the JAX operators hold None (A1bc, A3bc; A2bc unless
+      'mixed');
+    * `conv` as the ConvectionKernel's fields (CONV_FIELDS), in the velocity
+      path's dtype (that of t1);
+    * every other field (inverses, vectors, 0-d rho and dt) as an array."""
+    np_to_torch = {np.dtype(np.float32): torch.float32,
+                   np.dtype(np.float64): torch.float64}
+    wdt = np_to_torch[np.asarray(arrays["t1"]).dtype]
+
+    def leaf(name, value):
+        if value is None:
+            return None
+        if name == "conv":
+            return _leaf(name, value, device, wdt)
+        if isinstance(value, dict):
+            return _leaf(name, value, device,
+                         np_to_torch[np.asarray(value["vals"]).dtype])
+        value = np.asarray(value)
+        return torch.tensor(value, dtype=np_to_torch[value.dtype], device=device)
+
+    return DeviceOperators(**{name: leaf(name, arrays[name])
+                              for name in DeviceOperators._fields})

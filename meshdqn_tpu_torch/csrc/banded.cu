@@ -15,7 +15,12 @@
 // padded coordinates, and x(k, c) = X[k, c] for 0 <= k < n_cols, else 0.
 // Rows at or past n_rows (the last block's ragged tail) are not written.
 // f32 and bf16 blocks take and give f32 X and Y and accumulate in f32 (a
-// bf16 entry widens to f32 exactly); f64 blocks work in f64.
+// bf16 entry widens to f32 exactly); f64 blocks work in f64.  bf16 blocks
+// in the plain window layout compute what the JAX package's banded_matmat
+// (meshdqn_tpu/ops/banded.py:241) computes there: x rounded to bf16 and
+// each product rounded to bf16 (to nearest even) before the f32 sum; in the
+// aligned layout x stays f32 and the products exact, as in
+// banded_matmat_pallas_aligned and make_pl_kernel.
 //
 // The kernel never reads the dense blocks.  It reads their nonempty tiles
 // (ops/banded.py BandTiles): each row's window is cut into 128-byte column
@@ -58,8 +63,11 @@
 // after its launch (0 on success).  The caller allocates Y and owns the
 // stream; nothing here synchronises or allocates.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -119,6 +127,24 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }
 
+// x rounded to bf16 (to nearest even), back in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// c + a * b, or with kRound (bf16 a and b) c + bf16(a * b): the product of
+// two bf16 values is exact in f32, then rounded to bf16 as the JAX
+// package's bf16 multiply rounds it; explicitly rounded, so it is never
+// contracted into an FMA.
+template <bool kRound, typename T>
+__device__ __forceinline__ T mac(T a, T b, T c) {
+  if constexpr (kRound) {
+    return __fadd_rn(c, round_bf16(__fmul_rn(a, b)));
+  } else {
+    return fma_t(a, b, c);
+  }
+}
+
 // 16 bytes of packed tiles: not allocated in L1, default L2 policy.
 __device__ __forceinline__ uint4 load_tile_vec(const uint4* p) {
   uint4 r;
@@ -143,7 +169,7 @@ __device__ __forceinline__ void lds16(const double* p, double* o) {
 }
 
 // acc[c] += sum over the vector's N entries a[n] * x[n*M + c], in order.
-template <typename Tag, int M>
+template <typename Tag, int M, bool kRound>
 __device__ __forceinline__ void fma_vector(const uint4& raw,
                                            typename Blocks<Tag>::acc (&x)[Blocks<Tag>::N * M],
                                            typename Blocks<Tag>::acc (&acc)[M]) {
@@ -154,7 +180,7 @@ __device__ __forceinline__ void fma_vector(const uint4& raw,
 #pragma unroll
   for (int n = 0; n < N; ++n) {
 #pragma unroll
-    for (int c = 0; c < M; ++c) acc[c] = fma_t(a[n], x[n * M + c], acc[c]);
+    for (int c = 0; c < M; ++c) acc[c] = mac<kRound>(a[n], x[n * M + c], acc[c]);
   }
 }
 
@@ -167,7 +193,7 @@ __device__ __forceinline__ long long window_start(long long b, int g, int pad,
 
 // acc += one tile's 16-byte vector (the lane's chunk of column tile
 // ct) times its x values from the staged window xs.
-template <typename Tag, int M>
+template <typename Tag, int M, bool kRound>
 __device__ __forceinline__ void tile_fma(const uint4& raw, int ct, int n_ct, int chunk,
                                          const typename Blocks<Tag>::acc* xs,
                                          typename Blocks<Tag>::acc (&acc)[M]) {
@@ -178,7 +204,7 @@ __device__ __forceinline__ void tile_fma(const uint4& raw, int ct, int n_ct, int
   TA x[L];
 #pragma unroll
   for (int p = 0; p < L; p += 16 / static_cast<int>(sizeof(TA))) lds16(xs + j * M + p, x + p);
-  fma_vector<Tag, M>(raw, x, acc);
+  fma_vector<Tag, M, kRound>(raw, x, acc);
 }
 
 // One value of X into shared memory by an asynchronous copy (cp.async:
@@ -192,8 +218,8 @@ __device__ __forceinline__ void copy_async(TA* dst, const TA* src, bool in) {
 
 // Launched with blockDim.x = 32 * (warps per block), a divisor of
 // R / kWarpRows: the rows of a block's warps lie in one row block and share
-// its x window.
-template <typename Tag, int M>
+// its x window.  kRound: bf16 blocks in the plain layout (the header).
+template <typename Tag, int M, bool kRound>
 __global__ void __launch_bounds__(kThreads)
     banded_tiles_kernel(const uint4* __restrict__ tiles, const int* __restrict__ offsets,
                         const int* __restrict__ cols,
@@ -252,6 +278,9 @@ __global__ void __launch_bounds__(kThreads)
   };
   load_chunk(0);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if constexpr (kRound) {  // each thread rounds the values it copied
+    for (int e = threadIdx.x; e < W * M; e += blockDim.x) xs[e] = round_bf16(xs[e]);
+  }
   __syncthreads();
 
   TA acc_a[M], acc_b[M];
@@ -260,8 +289,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int t0 = 0; t0 < steps;) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (lo_a + t0 + u < hi_a) tile_fma<Tag, M>(v_a[u], c_a[u], n_ct, chunk, xs, acc_a);
-      if (lo_b + t0 + u < hi_b) tile_fma<Tag, M>(v_b[u], c_b[u], n_ct, chunk, xs, acc_b);
+      if (lo_a + t0 + u < hi_a)
+        tile_fma<Tag, M, kRound>(v_a[u], c_a[u], n_ct, chunk, xs, acc_a);
+      if (lo_b + t0 + u < hi_b)
+        tile_fma<Tag, M, kRound>(v_b[u], c_b[u], n_ct, chunk, xs, acc_b);
     }
     t0 += kUnroll;
     if (t0 < steps) load_chunk(t0);
@@ -286,7 +317,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Tag, int M>
+template <typename Tag, int M, bool kRound>
 cudaError_t launch_m(const uint4* tiles, const int* offsets, const int* cols,
                      const typename Blocks<Tag>::acc* X,
                      typename Blocks<Tag>::acc* Y, int R, int W, int g, int pad,
@@ -298,7 +329,7 @@ cudaError_t launch_m(const uint4* tiles, const int* offsets, const int* cols,
   // the largest size granted so the attribute is set once per size class.
   static int granted = 48 * 1024;
   if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(banded_tiles_kernel<Tag, M>,
+    cudaError_t err = cudaFuncSetAttribute(banded_tiles_kernel<Tag, M, kRound>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
     if (err != cudaSuccess) return err;
@@ -310,7 +341,7 @@ cudaError_t launch_m(const uint4* tiles, const int* offsets, const int* cols,
   while ((R / kWarpRows) % per_block != 0) per_block /= 2;
   const int warps = (n_rows + kWarpRows - 1) / kWarpRows;
   const int blocks = (warps + per_block - 1) / per_block;
-  banded_tiles_kernel<Tag, M><<<blocks, 32 * per_block, smem, stream>>>(
+  banded_tiles_kernel<Tag, M, kRound><<<blocks, 32 * per_block, smem, stream>>>(
       tiles, offsets, cols, X, Y, R, W, g, pad, aligned, n_rows, n_cols, n_tiles);
   return cudaGetLastError();
 }
@@ -332,12 +363,22 @@ cudaError_t launch(const void* tiles, const int* offsets, const int* cols,
   const uint4* t = static_cast<const uint4*>(tiles);
   const TA* x = static_cast<const TA*>(X);
   TA* y = static_cast<TA*>(Y);
+  constexpr bool kBf16 = std::is_same<Tag, bf16_bits>::value;
+  if (kBf16 && !aligned) {
+    if (m == 1)
+      return launch_m<Tag, 1, kBf16>(t, offsets, cols, x, y, R, W, g, pad, aligned,
+                                     n_rows, n_cols, n_tiles, s);
+    if (m == 2)
+      return launch_m<Tag, 2, kBf16>(t, offsets, cols, x, y, R, W, g, pad, aligned,
+                                     n_rows, n_cols, n_tiles, s);
+    return cudaErrorInvalidValue;
+  }
   if (m == 1)
-    return launch_m<Tag, 1>(t, offsets, cols, x, y, R, W, g, pad, aligned, n_rows,
-                            n_cols, n_tiles, s);
+    return launch_m<Tag, 1, false>(t, offsets, cols, x, y, R, W, g, pad, aligned, n_rows,
+                                   n_cols, n_tiles, s);
   if (m == 2)
-    return launch_m<Tag, 2>(t, offsets, cols, x, y, R, W, g, pad, aligned, n_rows,
-                            n_cols, n_tiles, s);
+    return launch_m<Tag, 2, false>(t, offsets, cols, x, y, R, W, g, pad, aligned, n_rows,
+                                   n_cols, n_tiles, s);
   return cudaErrorInvalidValue;
 }
 

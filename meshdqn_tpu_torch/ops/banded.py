@@ -20,7 +20,9 @@ Kernel (csrc/banded.cu, CUDA C++ for sm_90a, bound with ctypes):
   and banded_matmat_pallas_aligned (_banded_aligned_kernel, :318 / :352) for
   the aligned one, and scripts/banded_formulation_bench.py:make_pl_kernel
   (:180), the R = 128 aligned product with f32 or bf16 blocks.  Blocks are
-  f32, bf16 (f32 X and Y, f32 accumulation) or f64.
+  f32, bf16 (f32 X and Y, f32 accumulation) or f64.  With bf16 blocks in
+  the plain layout, x and each product are rounded to bf16, as the JAX
+  package's banded_matmat rounds them (`banded_matmat_reference`).
 
 The dense blocks hold 80-220x the operator's nonzeros, and the zeros
 cluster: on the finest meshes 2-12% of a window's 128-byte row segments
@@ -126,7 +128,11 @@ def banded_matmat_reference(blocks: torch.Tensor, X: torch.Tensor, *, pad: int,
                             g: int, aligned: bool, n_rows: int) -> torch.Tensor:
     """Plain version of `banded_matmat`: gather each block's window of x
     (zero outside [0, n_cols)) and contract, in f32 for f32 and bf16 blocks
-    and f64 for f64 blocks."""
+    and f64 for f64 blocks.  bf16 blocks in the plain layout take x rounded
+    to bf16 and round each product to bf16 before the f32 sum, as the JAX
+    package's banded_matmat does on them (meshdqn_tpu/ops/banded.py:241:
+    `Z.astype(blocks.dtype)`, a bf16 multiply); in the aligned layout x and
+    the products stay f32, as in its aligned Pallas kernel."""
     banded_matmat_reference.calls += 1
     B, R, W = blocks.shape
     acc = torch.float64 if blocks.dtype == torch.float64 else torch.float32
@@ -136,7 +142,11 @@ def banded_matmat_reference(blocks: torch.Tensor, X: torch.Tensor, *, pad: int,
            + torch.arange(W, device=X.device))  # (B, W) x index
     inside = (idx >= 0) & (idx < n_cols)
     win = X2[idx.clamp(0, max(n_cols - 1, 0))] * inside[..., None]  # (B, W, m)
-    Y = torch.bmm(blocks.to(acc), win).reshape(B * R, m)[:n_rows]
+    if blocks.dtype == torch.bfloat16 and not aligned:
+        prods = blocks.float()[..., None] * win.bfloat16().float()[:, None]  # (B, R, W, m)
+        Y = prods.bfloat16().float().sum(dim=2).reshape(B * R, m)[:n_rows]
+    else:
+        Y = torch.bmm(blocks.to(acc), win).reshape(B * R, m)[:n_rows]
     return Y[:, 0] if X.dim() == 1 else Y
 
 

@@ -10,9 +10,19 @@ Kernels (csrc/matvec.cu, CUDA C++ for sm_90a, bound with ctypes):
   version `step_*_reference` with `apply=matvec` (single launches and
   torch's elementwise ops) bit for bit: every row product is summed in
   `matvec`'s order, and the kernel rounds the epilogue as torch does.
+* `step_ustar_df32`, `step_pressure_df32`, `step_velocity_df32`: the
+  split form, the 'df32' step's three launches (solver/fused.py
+  fused_step_df32).  Each operator is an f32 high limb and a bf16 low limb;
+  a launch streams both once, sums the high limb as the grouped form does
+  and the low limb against x rounded to bf16, and combines them in the
+  order of meshdqn_tpu/solver/fused.py:fused_step_df32.  It replaces that
+  step's f32 matmuls and its bf16 low-limb matmuls.  Plain versions
+  `step_*_df32_reference`.
 * `matvec_dual` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_dual_pallas
-  (_mv_dual_kernel): y = m @ x_hi + m @ x_lo, reading m once.  No caller in
-  the port yet (nor in the JAX package's step).
+  (_mv_dual_kernel): y = m @ x_hi + m @ x_lo, reading m once, for a state
+  carried as two f32 words.  No solver mode carries one, in the port or in
+  the JAX package ('df32' splits the operators, not the state), so it has
+  no caller.
 
 All are bound by the bytes of the matrices: a matvec does two flops per
 matrix entry and reuses none of it.  The kernel streams each matrix exactly
@@ -58,7 +68,11 @@ def _lib():
         lib.step_ustar_f32.argtypes = [_c_void_p] * 9 + [_c_int] * 2 + [_c_void_p]
         lib.step_pressure_f32.argtypes = [_c_void_p] * 7 + [_c_int] * 2 + [_c_void_p]
         lib.step_velocity_f32.argtypes = [_c_void_p] * 6 + [_c_int] * 2 + [_c_void_p]
-        for fn in (lib.step_ustar_f32, lib.step_pressure_f32, lib.step_velocity_f32):
+        lib.step_ustar_df32.argtypes = [_c_void_p] * 13 + [_c_int] * 2 + [_c_void_p]
+        lib.step_pressure_df32.argtypes = [_c_void_p] * 10 + [_c_int] * 2 + [_c_void_p]
+        lib.step_velocity_df32.argtypes = [_c_void_p] * 9 + [_c_int] * 2 + [_c_void_p]
+        for fn in (lib.step_ustar_f32, lib.step_pressure_f32, lib.step_velocity_f32,
+                   lib.step_ustar_df32, lib.step_pressure_df32, lib.step_velocity_df32):
             fn.restype = _c_int
         _LIB = lib
     return _LIB
@@ -76,9 +90,12 @@ def matvec_dual_reference(
     return m @ x_hi + m @ x_lo
 
 
-def relative_gap(y: torch.Tensor, ref: torch.Tensor) -> float:
-    """||y - ref|| / ||ref|| over all entries, in f64."""
+def relative_gap(y: torch.Tensor, ref: torch.Tensor, rows=None) -> float:
+    """||y - ref|| / ||ref|| over all entries, in f64; with `rows` (a bool
+    mask of the leading dimension) over those rows only."""
     y, ref = y.double(), ref.double()
+    if rows is not None:
+        y, ref = y[rows], ref[rows]
     return (torch.linalg.vector_norm(y - ref)
             / torch.linalg.vector_norm(ref)).item()
 
@@ -111,11 +128,12 @@ def round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
     return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(t.dtype)
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_operand(name: str, t: torch.Tensor, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the operators on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the kernel takes float32, got {t.dtype} for {name}")
+    if t.dtype != dtype:
+        raise TypeError(f"the kernel takes {dtype} for {name}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"the kernel takes contiguous operands; {name} is not")
 
@@ -242,14 +260,15 @@ def _bind(sizes: dict, name: str, t: torch.Tensor, dims: tuple) -> None:
 
 
 def _check_group(form: str, ops, vecs, staged) -> dict:
-    """Validate a grouped launch's operands, given as (name, tensor, dims):
-    one device, float32, contiguous, sizes that agree; returns the sizes by
-    name.  `staged` names the sizes of the x vectors the launch stages in
-    shared memory.  The operators are constant over a solve, so beyond
-    their sizes they are checked once: while the same tensor objects come
-    back, only the vectors are."""
+    """Validate a grouped launch's operands, given as (name, tensor, dims)
+    or (name, tensor, dims, dtype): one device, float32 unless named,
+    contiguous, sizes that agree; returns the sizes by name.  `staged`
+    names the sizes of the x vectors the launch stages in shared memory.
+    The operators are constant over a solve, so beyond their sizes they are
+    checked once: while the same tensor objects come back, only the vectors
+    are."""
     sizes: dict = {}
-    for name, t, dims in (*ops, *vecs):
+    for name, t, dims, *_ in (*ops, *vecs):
         _bind(sizes, name, t, dims)
     smem = 4 * sum(-(-sizes[d] // 4) * 4 for d in staged)
     if smem > MAX_SMEM_BYTES:
@@ -257,12 +276,12 @@ def _check_group(form: str, ops, vecs, staged) -> dict:
                          f"above the {MAX_SMEM_BYTES} a block may use")
     device = ops[0][1].device
     refs = _checked_operators.get(form)
-    fresh = refs is None or any(r() is not t for r, (_, t, _) in zip(refs, ops))
-    for name, t, _ in (*ops, *vecs) if fresh else vecs:
-        _check_operand(name, t, device)
+    fresh = refs is None or any(r() is not op[1] for r, op in zip(refs, ops))
+    for name, t, _, *dtype in (*ops, *vecs) if fresh else vecs:
+        _check_operand(name, t, device, *dtype)
     if fresh:
         _check_current_device(device)
-        _checked_operators[form] = tuple(weakref.ref(t) for _, t, _ in ops)
+        _checked_operators[form] = tuple(weakref.ref(op[1]) for op in ops)
     return sizes
 
 
@@ -335,8 +354,136 @@ def step_velocity(F3s, F3p, k3, u_star, dp) -> torch.Tensor:
     return out
 
 
+# --------------------------------------------------------------------------
+# The split form: the 'df32' step (solver/fused.py fused_step_df32) in three
+# launches.  Each operator is an f32 high limb and a bf16 low limb, each
+# vector constant an f32 high and low limb.  The plain versions compute the
+# JAX package's expression: the high part through step_*_reference (its
+# products through `apply`), the low products as `_mml`.
+# --------------------------------------------------------------------------
+
+
+def _mml(m_lo: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A bf16 low limb times x rounded to bf16, summed in f32: the JAX
+    step's `mml`.  The product of two bf16 values is exact in f32."""
+    return m_lo.float() @ x.bfloat16().float()
+
+
+def step_ustar_df32_reference(F1u, F1p, A1Z, rho, k1, L1u, L1p, LA1Z, l1, u, p, c,
+                              apply=matvec_reference):
+    """Plain version of `step_ustar_df32`: u_hi + (((L1u b(u) + L1p b(p)) -
+    rho LA1Z b(c)) + l1), u_hi = step_ustar_reference(...)."""
+    u_hi = step_ustar_reference(F1u, F1p, A1Z, rho, k1, u, p, c, apply=apply)
+    return u_hi + (_mml(L1u, u) + _mml(L1p, p) - rho * _mml(LA1Z, c) + l1)
+
+
+def step_pressure_df32_reference(F2p, F2u, k2, L2p, L2u, l2, p, u_star,
+                                 apply=matvec_reference):
+    """Plain version of `step_pressure_df32`: (p', p' - p) with p' = p_hi +
+    ((L2p b(p) + L2u b(u*)) + l2)."""
+    p_hi, _ = step_pressure_reference(F2p, F2u, k2, p, u_star, apply=apply)
+    p_new = p_hi + (_mml(L2p, p) + _mml(L2u, u_star) + l2)
+    return p_new, p_new - p
+
+
+def step_velocity_df32_reference(F3s, F3p, k3, L3s, L3p, l3, u_star, dp,
+                                 apply=matvec_reference):
+    """Plain version of `step_velocity_df32`: y = F3s u* + F3p dp (the
+    (Ns, 2) stack), plus the same through the low limbs on b(u*) and b(dp),
+    then + k3 + l3."""
+    ns = F3s.shape[0]
+    ustack = torch.stack([u_star[:ns], u_star[ns:]], dim=1)  # (Ns, 2)
+    y = apply(F3s, ustack) + apply(F3p.view(2 * ns, -1), dp).view(2, ns).T
+    y_lo = _mml(L3s, ustack) + _mml(L3p.view(2 * ns, -1), dp).view(2, ns).T
+    y = y + y_lo
+    return torch.cat([y[:, 0], y[:, 1]]) + k3 + l3
+
+
+_BF16 = torch.bfloat16
+
+
+def step_ustar_df32(F1u, F1p, A1Z, rho, k1, L1u, L1p, LA1Z, l1, u, p, c) -> torch.Tensor:
+    """`step_ustar` with low limbs (L1u, L1p, LA1Z bf16, l1 f32) in one
+    launch on CUDA."""
+    if not (u.is_cuda or F1u.is_cuda):
+        return step_ustar_df32_reference(F1u, F1p, A1Z, rho, k1, L1u, L1p, LA1Z, l1,
+                                         u, p, c)
+    n = _check_group(
+        "ustar_df32",
+        (("F1u", F1u, ("nu", "nu")), ("F1p", F1p, ("nu", "np")),
+         ("A1Z", A1Z, ("nu", "nu")), ("rho", rho, ()), ("k1", k1, ("nu",)),
+         ("L1u", L1u, ("nu", "nu"), _BF16), ("L1p", L1p, ("nu", "np"), _BF16),
+         ("LA1Z", LA1Z, ("nu", "nu"), _BF16), ("l1", l1, ("nu",))),
+        (("u", u, ("nu",)), ("p", p, ("np",)), ("c", c, ("nu",))),
+        ("nu", "np", "nu") * 2,
+    )
+    out = torch.empty(n["nu"], dtype=torch.float32, device=u.device)
+    err = _lib().step_ustar_df32(
+        F1u.data_ptr(), F1p.data_ptr(), A1Z.data_ptr(), L1u.data_ptr(), L1p.data_ptr(),
+        LA1Z.data_ptr(), u.data_ptr(), p.data_ptr(), c.data_ptr(), rho.data_ptr(),
+        k1.data_ptr(), l1.data_ptr(), out.data_ptr(), n["nu"], n["np"], _stream(u),
+    )
+    _raise_on(err, "step_ustar_df32")
+    step_ustar_df32.launches += 1
+    return out
+
+
+def step_pressure_df32(F2p, F2u, k2, L2p, L2u, l2, p, u_star):
+    """`step_pressure` with low limbs (L2p, L2u bf16, l2 f32) in one launch
+    on CUDA; returns (p', p' - p)."""
+    if not (p.is_cuda or F2p.is_cuda):
+        return step_pressure_df32_reference(F2p, F2u, k2, L2p, L2u, l2, p, u_star)
+    n = _check_group(
+        "pressure_df32",
+        (("F2p", F2p, ("np", "np")), ("F2u", F2u, ("np", "nu")), ("k2", k2, ("np",)),
+         ("L2p", L2p, ("np", "np"), _BF16), ("L2u", L2u, ("np", "nu"), _BF16),
+         ("l2", l2, ("np",))),
+        (("p", p, ("np",)), ("u_star", u_star, ("nu",))),
+        ("np", "nu") * 2,
+    )
+    p_new = torch.empty(n["np"], dtype=torch.float32, device=p.device)
+    dp = torch.empty_like(p_new)
+    err = _lib().step_pressure_df32(
+        F2p.data_ptr(), F2u.data_ptr(), L2p.data_ptr(), L2u.data_ptr(), p.data_ptr(),
+        u_star.data_ptr(), k2.data_ptr(), l2.data_ptr(), p_new.data_ptr(),
+        dp.data_ptr(), n["np"], n["nu"], _stream(p),
+    )
+    _raise_on(err, "step_pressure_df32")
+    step_pressure_df32.launches += 1
+    return p_new, dp
+
+
+def step_velocity_df32(F3s, F3p, k3, L3s, L3p, l3, u_star, dp) -> torch.Tensor:
+    """`step_velocity` with low limbs (L3s, L3p bf16, l3 f32) in one launch
+    on CUDA; F3p and L3p are (2, Ns, Np)."""
+    if not (u_star.is_cuda or F3s.is_cuda):
+        return step_velocity_df32_reference(F3s, F3p, k3, L3s, L3p, l3, u_star, dp)
+    n = _check_group(
+        "velocity_df32",
+        (("F3s", F3s, ("ns", "ns")), ("F3p", F3p, (2, "ns", "np")),
+         ("k3", k3, ("nu",)), ("L3s", L3s, ("ns", "ns"), _BF16),
+         ("L3p", L3p, (2, "ns", "np"), _BF16), ("l3", l3, ("nu",))),
+        (("u_star", u_star, ("nu",)), ("dp", dp, ("np",))),
+        ("ns", "ns", "np") * 2,
+    )
+    if n["nu"] != 2 * n["ns"]:
+        raise ValueError(f"u* and k3 have {n['nu']} entries, not 2 Ns = {2 * n['ns']}")
+    out = torch.empty(n["nu"], dtype=torch.float32, device=u_star.device)
+    err = _lib().step_velocity_df32(
+        F3s.data_ptr(), F3p.data_ptr(), L3s.data_ptr(), L3p.data_ptr(),
+        u_star.data_ptr(), dp.data_ptr(), k3.data_ptr(), l3.data_ptr(),
+        out.data_ptr(), n["ns"], n["np"], _stream(u_star),
+    )
+    _raise_on(err, "step_velocity_df32")
+    step_velocity_df32.launches += 1
+    return out
+
+
 matvec.launches = 0
 matvec_dual.launches = 0
 step_ustar.launches = 0
 step_pressure.launches = 0
 step_velocity.launches = 0
+step_ustar_df32.launches = 0
+step_pressure_df32.launches = 0
+step_velocity_df32.launches = 0

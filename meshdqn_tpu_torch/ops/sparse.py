@@ -81,11 +81,25 @@ def _lib():
 
 def ell_matmat_reference(cols: torch.Tensor, vals: torch.Tensor,
                          X: torch.Tensor) -> torch.Tensor:
-    """Plain version of `ell_matmat`, in the inputs' dtype."""
+    """Plain version of `ell_matmat`, in the inputs' dtype.  In f32 each row
+    is the JAX package's matvec on the CPU (XLA fuses its multiply-reduce
+    into one fused multiply-add chain over the row's entries in order, from
+    +0):
+    each step adds the exact product in f64 and rounds to f32, which is the
+    FMA but for a rare double rounding.  The order matters where a row's
+    terms cancel: Kp on a pressure with a large mean, whose rounded products
+    made the unfused f32 step's pressure 5x as noisy as the JAX step's in
+    the lift's direction (tests/test_torch_dense_modes.py).  In f64, the
+    plain product and sum."""
     ell_matmat_reference.calls += 1
-    if X.dim() == 1:
-        return (vals * X[cols]).sum(dim=1)
-    return torch.einsum("rk,rkm->rm", vals, X[cols])
+    Xc = X[cols] if X.dim() == 1 else X[cols].permute(0, 2, 1)  # (R, K) or (R, m, K)
+    if vals.dtype != torch.float32:
+        return (vals if X.dim() == 1 else vals[:, None]).mul(Xc).sum(dim=-1)
+    prods = (vals.double() if X.dim() == 1 else vals.double()[:, None]) * Xc.double()
+    acc = torch.zeros(prods.shape[:-1], dtype=torch.float32, device=X.device)
+    for k in range(prods.shape[-1]):
+        acc = (acc.double() + prods[..., k]).float()
+    return acc
 
 
 def row_widths(cols: np.ndarray, vals: np.ndarray) -> np.ndarray:

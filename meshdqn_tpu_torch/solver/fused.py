@@ -20,6 +20,12 @@ the working dtype.  `fused_step` runs the step's seven dense applies and
 the elementwise work around them as three launches of the hand-written
 matvec kernel's grouped form (ops.matvec.step_ustar, step_pressure,
 step_velocity) on CUDA.
+
+precision='df32' keeps each operator as an f32 high limb and a bf16 low
+limb (`SplitLow`, from `compose_fused(..., split=True)`): the f32 step's
+error is the operators' fixed f32 entry rounding applied on every step, and
+the low limb removes most of it.  `fused_step_df32` runs the step as three
+launches of the kernel's split form (ops.matvec.step_*_df32).
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ import torch
 
 from ..ops.convection import ConvectionKernel
 from ..ops.matvec import (
-    step_pressure, step_pressure_reference, step_ustar, step_ustar_reference,
-    step_velocity, step_velocity_reference,
+    step_pressure, step_pressure_df32, step_pressure_df32_reference,
+    step_pressure_reference, step_ustar, step_ustar_df32, step_ustar_df32_reference,
+    step_ustar_reference, step_velocity, step_velocity_df32,
+    step_velocity_df32_reference, step_velocity_reference,
 )
 
 
@@ -60,6 +68,24 @@ class FusedOperators(NamedTuple):
     lift_u: torch.Tensor
     lift_p: torch.Tensor
     rho: torch.Tensor  # 0-d
+
+
+class SplitLow(NamedTuple):
+    """Low limbs of the fused operators for the 'df32' step
+    (meshdqn_tpu/solver/fused.py SplitLow): each matrix limb is
+    bf16(f32(x64 - f64(hi))), |lo| <= 2^-24 |hi| entrywise, which leaves
+    ~2.4e-10 of the operator unrepresented; vector limbs are f32."""
+
+    F1u: torch.Tensor
+    F1p: torch.Tensor
+    A1Z: torch.Tensor
+    k1: torch.Tensor
+    F2p: torch.Tensor
+    F2u: torch.Tensor
+    k2: torch.Tensor
+    F3s: torch.Tensor
+    F3p: torch.Tensor
+    k3: torch.Tensor
 
 
 def _dense64(A, device) -> torch.Tensor:
@@ -101,13 +127,17 @@ def compose_fused(
     lift_p,
     device,
     dtype=torch.float32,
-) -> FusedOperators:
+    split: bool = False,
+):
     """Compose the fused operators in f64 on `device`, then cast to `dtype`.
 
     Same inputs (scipy sparse systems, numpy vectors) and the same algebra as
     meshdqn_tpu.solver.fused.build_fused_host_f64; A^-1 B is formed as
     lu_solve(lu_factor(A), B) rather than inv(A) @ B, so entries agree with
-    the host-f64 composition to f64 rounding before the cast."""
+    the host-f64 composition to f64 rounding before the cast.  With `split`
+    (dtype float32) also returns the `SplitLow` of the same f64 operators,
+    limbs made as build_fused_host_f64(split=True) makes them: a matrix's
+    f64 remainder rounded to f32, then to bf16; a vector's to f32."""
     f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
     D = lambda A: _dense64(A, device)
     cast = lambda a: a.to(dtype).contiguous()
@@ -138,17 +168,11 @@ def compose_fused(
     )
     F3p = torch.stack([-dt * F3px, -dt * F3py])
     k3 = torch.cat([k3[:, 0], k3[:, 1]])
-    return FusedOperators(
-        F1u=cast(F1u),
-        F1p=cast(F1p),
-        A1Z=cast(A1Z),
-        k1=cast(k1[:, 0]),
-        F2p=cast(F2p),
-        F2u=cast(F2u),
-        k2=cast(k2[:, 0]),
-        F3s=cast(F3s),
-        F3p=cast(F3p),
-        k3=cast(k3),
+    f64s = dict(F1u=F1u, F1p=F1p, A1Z=A1Z, k1=k1[:, 0], F2p=F2p, F2u=F2u,
+                k2=k2[:, 0], F3s=F3s, F3p=F3p, k3=k3)
+    hi = {name: cast(a) for name, a in f64s.items()}
+    dev = FusedOperators(
+        **hi,
         conv=conv,
         drag_u=cast(f64(drag_u)),
         drag_p=cast(f64(drag_p)),
@@ -156,6 +180,15 @@ def compose_fused(
         lift_p=cast(f64(lift_p)),
         rho=torch.tensor(rho, dtype=dtype, device=device),
     )
+    if not split:
+        return dev
+    if dtype != torch.float32:
+        raise ValueError("split limbs are made for float32 high limbs")
+    lo = {}
+    for name, a in f64s.items():
+        rest = (a - hi[name].double()).float()
+        lo[name] = (rest if a.dim() == 1 else rest.bfloat16()).contiguous()
+    return dev, SplitLow(**lo)
 
 
 def fused_step(dev: FusedOperators, state: FlowState, apply=None):
@@ -181,6 +214,39 @@ def fused_step(dev: FusedOperators, state: FlowState, apply=None):
                                             apply=apply)
         u_new = step_velocity_reference(dev.F3s, dev.F3p, dev.k3, u_star, dp,
                                         apply=apply)
+
+    drag = dev.drag_u @ u_new + dev.drag_p @ p_new
+    lift = dev.lift_u @ u_new + dev.lift_p @ p_new
+    return FlowState(u=u_new, p=p_new), (drag, lift)
+
+
+def fused_step_df32(dev: FusedOperators, lo: SplitLow, state: FlowState,
+                    apply=None):
+    """One IPCS step with split (f32 high + bf16 low limb) operators,
+    meshdqn_tpu/solver/fused.py:fused_step_df32; returns (new_state, (drag,
+    lift)).
+
+    By default the step is three launches of the matvec kernel's split
+    form on CUDA (their plain versions on the CPU).  With `apply`, the plain
+    versions with the high limbs' products through `apply` (ops.matvec.matvec
+    for single launches) and the low limbs' as bf16 products in torch."""
+    u_n, p_n = state
+    c = dev.conv(u_n)
+    if apply is None:
+        u_star = step_ustar_df32(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1,
+                                 lo.F1u, lo.F1p, lo.A1Z, lo.k1, u_n, p_n, c)
+        p_new, dp = step_pressure_df32(dev.F2p, dev.F2u, dev.k2, lo.F2p, lo.F2u,
+                                       lo.k2, p_n, u_star)
+        u_new = step_velocity_df32(dev.F3s, dev.F3p, dev.k3, lo.F3s, lo.F3p, lo.k3,
+                                   u_star, dp)
+    else:
+        u_star = step_ustar_df32_reference(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1,
+                                           lo.F1u, lo.F1p, lo.A1Z, lo.k1, u_n, p_n, c,
+                                           apply=apply)
+        p_new, dp = step_pressure_df32_reference(dev.F2p, dev.F2u, dev.k2, lo.F2p,
+                                                 lo.F2u, lo.k2, p_n, u_star, apply=apply)
+        u_new = step_velocity_df32_reference(dev.F3s, dev.F3p, dev.k3, lo.F3s, lo.F3p,
+                                             lo.k3, u_star, dp, apply=apply)
 
     drag = dev.drag_u @ u_new + dev.drag_p @ p_new
     lift = dev.lift_u @ u_new + dev.lift_p @ p_new

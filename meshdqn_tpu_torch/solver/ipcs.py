@@ -3,11 +3,18 @@
 Counterpart of meshdqn_tpu/solver/ipcs.py: Taylor–Hood P2/P1, explicit
 convection, Crank–Nicolson viscosity, 3-step IPCS splitting with constant
 system matrices, assembled once on the host (fem/assembly.py) and
-BC-eliminated.  Two methods are ported:
+BC-eliminated.  The JAX package's methods and precisions, routed as there:
 
-* method='dense', precision='f32': the systems are composed into dense
-  operators on the device (solver/fused.py) and applied every step by the
-  hand-written matvec kernel (ops/matvec.py).
+* method='dense', fused (the default for 'f32' and 'df32'): the systems are
+  composed into dense operators on the device (solver/fused.py) and applied
+  every step by the hand-written matvec kernel (ops/matvec.py), its grouped
+  form in 'f32', its split form (f32 high and bf16 low limbs) in 'df32'.
+* method='dense', unfused (the default for 'f64' and 'mixed'; fused=False
+  for 'f32'): `ipcs_step`, three dense inverses built once in f64 on the
+  device and every other linear piece a sparse product through the ELL
+  kernel (ops/sparse.py).  'f64' works in f64; 'f32' in f32, its inverses
+  applied by the matvec kernel; 'mixed' keeps the velocity path in f32 and
+  the pressure path in f64 with iterative refinement.
 * method='cg', precision 'f32' or 'f64': the large-mesh path.  The velocity
   systems stay sparse and are solved by warm-started fixed-iteration PCG
   (ops/cg.py); only the small pressure system keeps a dense inverse.  Its
@@ -15,10 +22,11 @@ BC-eliminated.  Two methods are ported:
   hand-written kernel of ops/banded.py) or padded rows (cg_layout='ell',
   the hand-written kernel of ops/sparse.py).
 
-The JAX package's precisions 'mixed' and 'df32' and its unfused dense step
-are not ported yet (ROADMAP.md, Queue 1 items 4 and 5); asking for them
-raises NotImplementedError.  `IPCSConfig` keeps every field of the JAX
-config with the same defaults so configs/*.yaml load unchanged.
+Configurations the JAX package refuses raise here when the solver is made:
+fused=True with 'f64' or 'mixed', as there, and 'df32' with fused=False,
+whose unfused step the JAX package cannot run (below).  `IPCSConfig` keeps
+every field of the JAX config with the same defaults so configs/*.yaml
+load unchanged.
 """
 from __future__ import annotations
 
@@ -36,14 +44,17 @@ from ..ops.banded import BandedMatrix, permute_interleave_u, rcm_permutation
 from ..ops.cg import BlockJacobi, block_jacobi_inv, jacobi_inv, pcg
 from ..ops.convection import ConvectionKernel
 from ..ops.sparse import EllMatrix
+from ..ops.matvec import matvec
 from ..probes import drag_probe, lift_probe
-from .fused import FlowState, compose_fused, fused_step
+from .fused import FlowState, _dense64, compose_fused, fused_step, fused_step_df32
 
-__all__ = ["BandedCGOperators", "CGOperators", "FlowState", "IPCSConfig",
-           "IPCSSolver", "build_cg_operators", "build_fused_operators",
-           "cg_matrices",
-           "evolve_cg_n", "ipcs_step_cg", "ipcs_step_cg_banded",
-           "resolve_device"]
+__all__ = ["BandedCGOperators", "CGOperators", "DeviceOperators", "FlowState",
+           "IPCSConfig", "IPCSSolver", "build_cg_operators", "build_device_operators",
+           "build_fused_operators", "cg_matrices", "evolve_cg_n", "evolve_fused_df32_n",
+           "evolve_fused_n", "evolve_n", "ipcs_step", "ipcs_step_cg",
+           "ipcs_step_cg_banded", "resolve_device"]
+
+PRECISIONS = ("f64", "f32", "mixed", "df32")
 
 
 @dataclass
@@ -51,13 +62,15 @@ class IPCSConfig:
     mu: float = 1e-3
     rho: float = 1.0
     dt: float = 1e-3
-    # 'f64' | 'f32' | 'mixed' | 'df32'.  Ported: 'f32' with method='dense'
-    # (the fused step); 'f32' and 'f64' with method='cg'.
+    # 'f64' | 'f32' | 'mixed' | 'df32' with method='dense'; 'f32' | 'f64'
+    # with method='cg'.
     precision: str = "f64"
     refine_iters: int = 2  # for 'mixed'
     # TPU-backend switches of the JAX solver, accepted so configs load;
-    # the port composes in f64 on its own device whatever they say.
+    # the port composes and inverts in f64 on its own device whatever they
+    # say.
     invert_on_device: bool | None = None
+    # The fused dense step (solver/fused.py); None: on for 'f32' and 'df32'.
     fused: bool | None = None
     compose_on_host: bool | None = None
     # 'dense' = invert-once / fused dense operators; 'cg' = the large-mesh
@@ -118,18 +131,26 @@ def _pad_diag(n: int, start: int):
     return sp.csr_matrix((np.ones(len(idx)), (idx, idx)), shape=(n, n))
 
 
+def assemble(mesh: TriMesh, config: IPCSConfig):
+    """(markers, operators): the mesh's boundary markers and its assembled
+    FEM operators (fem/assembly.py), which every method builds from."""
+    markers = mark_boundaries(mesh)
+    return markers, assemble_operators(mesh, markers, config.mu, config.rho, config.dt)
+
+
 def build_fused_operators(mesh: TriMesh, config: IPCSConfig, *, device,
-                          dtype=torch.float32):
+                          dtype=torch.float32, split=False, assembled=None):
     """Assemble, BC-eliminate, optionally pad and compose the fused operators
     of `mesh` in `dtype` on `device`.
 
     Returns (operators, ndofs_u, ndofs_p, pad); pad is (Ns, nsq, Np, npq)
-    when config.pad_quantum is set, else None.  `IPCSSolver` calls this with
-    float32; the tests call it with float64 to hold the step against f64
-    references."""
+    when config.pad_quantum is set, else None.  With `split`, operators is
+    the pair (FusedOperators, SplitLow) of the 'df32' step.  `IPCSSolver`
+    calls this with float32; the tests call it with float64 to hold the step
+    against f64 references.  `assembled` is `assemble(mesh, config)` where
+    the caller has it."""
     cfg = config
-    markers = mark_boundaries(mesh)
-    ops = assemble_operators(mesh, markers, cfg.mu, cfg.rho, cfg.dt)
+    markers, ops = assembled or assemble(mesh, cfg)
     A1, A2, A3 = ops.A1, ops.A2, ops.A3
     Ns = ops.V.scalar.ndofs
     A1bc = apply_bc_symmetric(A1, ops.u_bc_mask)
@@ -195,9 +216,195 @@ def build_fused_operators(mesh: TriMesh, config: IPCSConfig, *, device,
             cells_pad=256 if cfg.pad_quantum else 0,
         ),
         drag_u=du, drag_p=dp_, lift_u=lu, lift_p=lp_,
-        device=device, dtype=dtype,
+        device=device, dtype=dtype, split=split,
     )
     return dev, ndofs_u, ndofs_p, pad
+
+
+
+# --------------------------------------------------------------------------
+# The unfused dense step (meshdqn_tpu/solver/ipcs.py:304): dense inverses of
+# the three systems and sparse products for every other linear piece.
+# --------------------------------------------------------------------------
+
+
+class DeviceOperators(NamedTuple):
+    """The unfused step's operators (meshdqn_tpu/solver/ipcs.py
+    DeviceOperators).  A3 is block-diagonal over the two components with
+    identical blocks, so only the scalar mass inverse (Ns x Ns) is stored
+    and applied to both as one (Ns, 2) product.  A1bc and A3bc are always
+    None, A2bc is set in 'mixed' only (its refinement residuals), as in the
+    JAX package."""
+
+    A1inv: torch.Tensor  # (2Ns, 2Ns)
+    A2inv: torch.Tensor  # (Np, Np)
+    A3inv_s: torch.Tensor  # (Ns, Ns) scalar-mass inverse
+    A1bc: EllMatrix | None
+    A2bc: EllMatrix | None
+    A3bc: EllMatrix | None
+    R1: EllMatrix
+    P1m: EllMatrix  # B - Bn
+    Kp: EllMatrix
+    BT: EllMatrix
+    M: EllMatrix
+    G: EllMatrix
+    z_u: torch.Tensor
+    z_p: torch.Tensor
+    t1: torch.Tensor
+    t2: torch.Tensor
+    t3: torch.Tensor
+    conv: ConvectionKernel
+    drag_u: torch.Tensor
+    drag_p: torch.Tensor
+    lift_u: torch.Tensor
+    lift_p: torch.Tensor
+    rho: torch.Tensor  # 0-d
+    dt: torch.Tensor  # 0-d
+
+
+def precision_dtypes(precision: str):
+    """(work, pressure, inverse) dtypes of the unfused step, as the JAX
+    package sets them (solver/ipcs.py:497-504): the velocity path works in
+    f64 only for 'f64', the pressure path in f64 for 'f64' and 'mixed', the
+    inverses are f32 for 'mixed' and 'f32'."""
+    f32, f64 = torch.float32, torch.float64
+    wdt = f64 if precision == "f64" else f32
+    pdt = f64 if precision in ("f64", "mixed") else f32
+    idt = f32 if precision in ("mixed", "f32") else f64
+    return wdt, pdt, idt
+
+
+def build_device_operators(mesh: TriMesh, config: IPCSConfig, *, device,
+                           assembled=None) -> DeviceOperators:
+    """The unfused step's operators of `mesh` on `device`, in the dtypes of
+    config.precision.  The three inverses are built in f64 on the device
+    (Hopper has native f64; the JAX package's on-device f32 inverse and its
+    row limit are TPU workarounds) and cast; sparse operators and vectors
+    are rounded to their dtype on the host, as the JAX package rounds them.
+    `assembled` is `assemble(mesh, config)` where the caller has it."""
+    cfg = config
+    markers, ops = assembled or assemble(mesh, cfg)
+    wdt, pdt, idt = precision_dtypes(cfg.precision)
+    Ns = ops.V.scalar.ndofs
+    A1bc = apply_bc_symmetric(ops.A1, ops.u_bc_mask)
+    A2bc = apply_bc_symmetric(ops.A2, ops.p_bc_mask)
+    Ms = ops.M[:Ns, :Ns].tocsr()
+    A3bc_s = apply_bc_symmetric(Ms, ops.u_bc_mask[:Ns])
+    gu, gp = ops.u_bc_values, ops.p_bc_values
+    zu = (~ops.u_bc_mask).astype(np.float64)
+    zp = (~ops.p_bc_mask).astype(np.float64)
+    dprobe = drag_probe(mesh, markers, cfg.mu)
+    lprobe = lift_probe(mesh, markers, cfg.mu)
+    np_of = {torch.float32: np.float32, torch.float64: np.float64}
+    vec = lambda a, dt: torch.tensor(np.asarray(a, dtype=np.float64).astype(np_of[dt]),
+                                     device=device)
+    ell = lambda A, dt: EllMatrix.from_scipy(A, device=device, dtype=dt)
+    inv = lambda A: torch.linalg.inv(_dense64(A, device)).to(idt).contiguous()
+    return DeviceOperators(
+        A1inv=inv(A1bc),
+        A2inv=inv(A2bc),
+        A3inv_s=inv(A3bc_s),
+        A1bc=None,
+        A2bc=ell(A2bc, pdt) if cfg.precision == "mixed" else None,
+        A3bc=None,
+        R1=ell(ops.R1, wdt),
+        P1m=ell(ops.B - ops.Bn, wdt),
+        Kp=ell(ops.Kp, pdt),
+        BT=ell(ops.B.T.tocsr(), pdt),
+        M=ell(ops.M, wdt),
+        G=ell(ops.G, wdt),
+        z_u=vec(zu, wdt),
+        z_p=vec(zp, pdt),
+        t1=vec(gu - zu * (ops.A1 @ gu), wdt),
+        t2=vec(gp - zp * (ops.A2 @ gp), pdt),
+        t3=vec(gu - zu * (ops.A3 @ gu), wdt),
+        conv=ConvectionKernel.build(mesh, device=device, dtype=wdt),
+        drag_u=vec(dprobe.d_u, wdt),
+        drag_p=vec(dprobe.d_p, pdt),
+        lift_u=vec(lprobe.d_u, wdt),
+        lift_p=vec(lprobe.d_p, pdt),
+        rho=torch.tensor(cfg.rho, dtype=wdt, device=device),
+        dt=torch.tensor(cfg.dt, dtype=wdt, device=device),
+    )
+
+
+def _inverse_apply(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A dense inverse applied: the matvec kernel in f32 (its plain version
+    on the CPU); torch.matmul in f64, which the f32-only kernel does not
+    take (the JAX package leaves this product to XLA)."""
+    return matvec(m, x) if m.dtype == torch.float32 else m @ x
+
+
+def ipcs_step(dev: DeviceOperators, state: FlowState, precision: str,
+              refine_iters: int):
+    """One IPCS step with dense inverses and sparse products
+    (meshdqn_tpu/solver/ipcs.py:ipcs_step); returns (new_state, (drag,
+    lift)).
+
+    In 'mixed' the state is (u: f32, p: f64): every 2Ns-sized operator runs
+    in f32, the Np-sized pressure system in f64, and the step-3 pressure
+    difference is formed in f64 before the cast down.  The casts sit where
+    the JAX step has them."""
+    u_n, p_n = state
+    wdt, pdt = dev.t1.dtype, dev.t2.dtype
+    c = dev.conv(u_n)
+    p_n_w = p_n.to(wdt)
+    # Step 1: tentative velocity.
+    b1 = (dev.R1 @ u_n) + (dev.P1m @ p_n_w) - dev.rho * c
+    b1 = b1 * dev.z_u + dev.t1
+    u_star = _inverse_apply(dev.A1inv, b1)
+    # Step 2: pressure correction (f64 in 'mixed').
+    u_star_p = u_star.to(pdt)
+    b2 = (dev.Kp @ p_n) - (dev.BT @ u_star_p) / dev.dt.to(pdt)
+    b2 = b2 * dev.z_p + dev.t2
+    p_new = _inverse_apply(dev.A2inv, b2.to(dev.A2inv.dtype)).to(pdt)
+    if precision == "mixed":
+        for _ in range(refine_iters):
+            r = b2 - (dev.A2bc @ p_new)
+            p_new = p_new + _inverse_apply(dev.A2inv, r.to(dev.A2inv.dtype)).to(pdt)
+    # Step 3: velocity correction; the pressure difference is formed at the
+    # pressure's precision, cast after the subtraction.
+    dp = (p_new - p_n).to(wdt)
+    b3 = (dev.M @ u_star) - dev.dt * (dev.G @ dp)
+    b3 = b3 * dev.z_u + dev.t3
+    ns = dev.A3inv_s.shape[0]
+    y = _inverse_apply(dev.A3inv_s, torch.stack([b3[:ns], b3[ns:]], dim=1))  # (Ns, 2)
+    u_new = torch.cat([y[:, 0], y[:, 1]])
+
+    drag = dev.drag_u @ u_new + dev.drag_p @ p_new
+    lift = dev.lift_u @ u_new + dev.lift_p @ p_new
+    return FlowState(u=u_new, p=p_new), (drag, lift)
+
+
+def _loop(step, state: FlowState, n_steps: int, dtype, device):
+    """n_steps of step(state) -> (state, (drag, lift)); drag and lift land in
+    preallocated device tensors, so the loop never waits for the device."""
+    drags = torch.empty(n_steps, dtype=dtype, device=device)
+    lifts = torch.empty_like(drags)
+    for i in range(n_steps):
+        state, (drags[i], lifts[i]) = step(state)
+    return state, (drags, lifts)
+
+
+def evolve_n(dev: DeviceOperators, state: FlowState, n_steps: int, precision: str,
+             refine_iters: int):
+    """n_steps unfused steps; returns (state, (drags, lifts)), drag and lift
+    in the wider of the two paths' dtypes (f64 in 'mixed')."""
+    return _loop(lambda s: ipcs_step(dev, s, precision, refine_iters), state, n_steps,
+                 torch.promote_types(dev.t1.dtype, dev.t2.dtype), dev.t1.device)
+
+
+def evolve_fused_n(dev, state: FlowState, n_steps: int):
+    """n_steps fused steps; returns (state, (drags, lifts))."""
+    return _loop(lambda s: fused_step(dev, s), state, n_steps, dev.k1.dtype,
+                 dev.k1.device)
+
+
+def evolve_fused_df32_n(dev, lo, state: FlowState, n_steps: int):
+    """n_steps 'df32' steps (split operators); returns (state, (drags,
+    lifts))."""
+    return _loop(lambda s: fused_step_df32(dev, lo, s), state, n_steps, dev.k1.dtype,
+                 dev.k1.device)
 
 
 
@@ -356,7 +563,7 @@ def evolve_cg_n(dev, state: FlowState, u_star0: torch.Tensor, n_steps: int,
     return state, ustar, (drags, lifts)
 
 
-def cg_matrices(mesh: TriMesh, config: IPCSConfig) -> dict:
+def cg_matrices(mesh: TriMesh, config: IPCSConfig, assembled=None) -> dict:
     """The host side of the CG step's operators, as meshdqn_tpu's
     IPCSSolver builds them (solver/ipcs.py:519-573 and :740-828):
 
@@ -366,10 +573,11 @@ def cg_matrices(mesh: TriMesh, config: IPCSConfig) -> dict:
     * vectors: f64 arrays by field (z_u, z_p, t1, t2, t3 and the probes);
     * A2inv: the pressure inverse, from host f64 LAPACK;
     * vert_pos, o2n_u: the vertices' scalar-RCM positions and the velocity
-      old->new map (banded layout only)."""
+      old->new map (banded layout only).
+
+    `assembled` is `assemble(mesh, config)` where the caller has it."""
     cfg = config
-    markers = mark_boundaries(mesh)
-    ops = assemble_operators(mesh, markers, cfg.mu, cfg.rho, cfg.dt)
+    markers, ops = assembled or assemble(mesh, cfg)
     Ns = ops.V.scalar.ndofs
     Ms = ops.M[:Ns, :Ns].tocsr()
     A1bc = apply_bc_symmetric(ops.A1, ops.u_bc_mask)
@@ -426,7 +634,8 @@ def cg_matrices(mesh: TriMesh, config: IPCSConfig) -> dict:
     return out
 
 
-def build_cg_operators(mesh: TriMesh, config: IPCSConfig, *, device, dtype):
+def build_cg_operators(mesh: TriMesh, config: IPCSConfig, *, device, dtype,
+                       assembled=None):
     """The CG step's operators of `mesh` in `dtype` on `device` (see
     `cg_matrices`).  Returns (operators, export index): the export index
     maps the banded layout's velocity vector to [ux; uy], and is None for
@@ -434,7 +643,7 @@ def build_cg_operators(mesh: TriMesh, config: IPCSConfig, *, device, dtype):
     JAX package rounds it; banded operators take bf16 storage with
     cg_banded_dtype='bf16'."""
     cfg = config
-    host = cg_matrices(mesh, cfg)
+    host = cg_matrices(mesh, cfg, assembled)
     mats = host["matrices"]
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     vec = lambda a: torch.tensor(np.asarray(a, dtype=np.float64).astype(np_dtype),
@@ -488,7 +697,14 @@ def build_cg_operators(mesh: TriMesh, config: IPCSConfig, *, device, dtype):
 
 class IPCSSolver:
     """Assemble-once IPCS stepper for one mesh, on `device` (CUDA unless
-    named): the fused f32 dense path or the CG path."""
+    named), routed by method, precision and `fused` as the JAX package
+    routes them (solver/ipcs.py:497-504, 575-583, 684-690, 890-902).
+
+    Besides the solver's state it exposes what the environment reads, as the
+    JAX solver does: `markers`, `operators` (the assembled FEM operators),
+    the `drag` and `lift` probes, `removable` (the vertices off the
+    boundary), `fused`, `dev_lo` (the 'df32' low limbs, else None),
+    `work_dtype` and `pressure_dtype`."""
 
     def __init__(self, mesh: TriMesh, config: IPCSConfig | None = None,
                  device=None):
@@ -498,40 +714,66 @@ class IPCSSolver:
         self._pad = None
         self._u_export_idx = None
         self._cg_ustar = None
+        self.dev_lo = None
         if cfg.method == "cg":
             if cfg.precision not in ("f64", "f32"):
                 raise ValueError("method='cg' supports precision 'f64'|'f32'")
             if cfg.cg_banded_dtype == "bf16" and cfg.precision != "f32":
                 raise ValueError("cg_banded_dtype='bf16' needs precision='f32'")
-            self.device = resolve_device(device)
-            self.work_dtype = (torch.float64 if cfg.precision == "f64"
-                               else torch.float32)
-            self.dev, self._u_export_idx = build_cg_operators(
-                mesh, cfg, device=self.device, dtype=self.work_dtype
-            )
-            self.ndofs_u = self.dev.t1.shape[0]
-            self.ndofs_p = self.dev.t2.shape[0]
-            self.reset_warm_start()
-            return
-        if cfg.method != "dense":
+            self.fused = False
+        elif cfg.method == "dense":
+            if cfg.precision not in PRECISIONS:
+                raise ValueError(f"unknown precision {cfg.precision!r}")
+            self.fused = (cfg.fused if cfg.fused is not None
+                          else cfg.precision in ("f32", "df32"))
+            if self.fused and cfg.precision not in ("f32", "df32"):
+                raise ValueError("fused=True requires precision 'f32' or 'df32'")
+            if not self.fused and cfg.precision == "df32":
+                # The JAX unfused step takes 'df32' as f32 state with f64
+                # inverses, promotes u to f64 in its first step, and its
+                # lax.scan refuses a carry whose dtype changes: the JAX
+                # package runs no such solve.
+                raise ValueError(
+                    "precision='df32' needs the fused step: the JAX package's "
+                    "unfused step cannot run it (f64 inverses promote the f32 "
+                    "velocity to f64 in the first step, which its time loop "
+                    "refuses)")
+        else:
             raise ValueError(f"unknown method {cfg.method!r}")
-        if cfg.precision != "f32":
-            raise NotImplementedError(
-                f"precision={cfg.precision!r} with method='dense' is not ported "
-                "yet: 'f64' and 'mixed' are ROADMAP.md Queue 1 item 4, 'df32' "
-                "item 5; the dense path runs 'f32' (fused), and method='cg' "
-                "runs 'f32' and 'f64'"
-            )
-        if cfg.fused is False:
-            raise NotImplementedError(
-                "fused=False (the unfused step) is not ported yet: ROADMAP.md "
-                "Queue 1 item 4"
-            )
         self.device = resolve_device(device)
-        self.work_dtype = torch.float32
-        self.dev, self.ndofs_u, self.ndofs_p, self._pad = build_fused_operators(
-            mesh, cfg, device=self.device, dtype=self.work_dtype
-        )
+
+        self.markers, self.operators = assembled = assemble(mesh, cfg)
+        self.drag = drag_probe(mesh, self.markers, cfg.mu)
+        self.lift = lift_probe(mesh, self.markers, cfg.mu)
+        # The reference's `removable` (flow_solver.py:75-78) with its
+        # broadcasting bug fixed, as the JAX package has it: a vertex is
+        # removable iff it is not on the boundary.
+        self.removable = ~mesh.boundary_vertex_mask
+        self.ndofs_u = self.operators.V.ndofs
+        self.ndofs_p = self.operators.Q.ndofs
+
+        if cfg.method == "cg":
+            self.work_dtype = self.pressure_dtype = (
+                torch.float64 if cfg.precision == "f64" else torch.float32)
+            self.dev, self._u_export_idx = build_cg_operators(
+                mesh, cfg, device=self.device, dtype=self.work_dtype,
+                assembled=assembled,
+            )
+            self.reset_warm_start()
+        elif self.fused:
+            self.work_dtype = self.pressure_dtype = torch.float32
+            built, self.ndofs_u, self.ndofs_p, self._pad = build_fused_operators(
+                mesh, cfg, device=self.device, dtype=torch.float32,
+                split=cfg.precision == "df32", assembled=assembled,
+            )
+            if cfg.precision == "df32":
+                self.dev, self.dev_lo = built
+            else:
+                self.dev = built
+        else:
+            self.work_dtype, self.pressure_dtype, _ = precision_dtypes(cfg.precision)
+            self.dev = build_device_operators(mesh, cfg, device=self.device,
+                                              assembled=assembled)
 
     def export_u(self, u):
         """A velocity vector in the canonical [ux; uy] layout (identity
@@ -551,13 +793,14 @@ class IPCSSolver:
         return p[: self._pad[2]]
 
     def initial_state(self) -> FlowState:
-        """Zero initial condition (flow_solver.py:92-93 of the reference).
-        Also resets the CG warm start, so a second trajectory through the
-        same solver reproduces a fresh one."""
+        """Zero initial condition (flow_solver.py:92-93 of the reference), u
+        in the work dtype and p in the pressure dtype.  Also resets the CG
+        warm start, so a second trajectory through the same solver
+        reproduces a fresh one."""
         self.reset_warm_start()
         return FlowState(
             u=torch.zeros(self.ndofs_u, dtype=self.work_dtype, device=self.device),
-            p=torch.zeros(self.ndofs_p, dtype=self.work_dtype, device=self.device),
+            p=torch.zeros(self.ndofs_p, dtype=self.pressure_dtype, device=self.device),
         )
 
     def reset_warm_start(self):
@@ -578,13 +821,14 @@ class IPCSSolver:
                 self.dev, state, self._cg_ustar, n_steps, cfg.cg_iters_u,
                 cfg.cg_iters_m, cfg.cg_pressure_refine,
             )
-            return state, drags, lifts
-        drags = torch.empty(n_steps, dtype=self.work_dtype, device=self.device)
-        lifts = torch.empty_like(drags)
-        for i in range(n_steps):
-            state, (d, l) = fused_step(self.dev, state)
-            drags[i] = d
-            lifts[i] = l
+        elif self.dev_lo is not None:
+            state, (drags, lifts) = evolve_fused_df32_n(self.dev, self.dev_lo, state,
+                                                        n_steps)
+        elif self.fused:
+            state, (drags, lifts) = evolve_fused_n(self.dev, state, n_steps)
+        else:
+            state, (drags, lifts) = evolve_n(self.dev, state, n_steps, cfg.precision,
+                                             cfg.refine_iters)
         return state, drags, lifts
 
     def solve(

@@ -8,7 +8,9 @@ computed independently from the scipy sparsity pattern; and a plain torch
 product over the tiles, in the kernel's summation order, is held to
 `banded_matmat_reference` (which computes from the dense blocks) within
 ops.matvec.gap_tolerance(W), while the same product on TF32- and
-bf16-rounded inputs falls outside it.  Operators: RCM-banded random
+bf16-rounded inputs falls outside it (bf16 blocks in the plain layout round
+x and their products to bf16, as the JAX package's banded_matmat does; there
+the product without those roundings must fall outside it).  Operators: RCM-banded random
 patterns, square (g = R), wide (g = 2R) and tall (g = R/2), both window
 layouts, R = 128 (the production row block) and R = 48 (R/8 warps no
 multiple of 4), with a ragged last row block and windows off both ends.
@@ -52,14 +54,20 @@ def unpack(tiles, B, R):
     return dense.reshape(B, R, tiles.width)
 
 
-def tiled_product(tiles, X, *, R, pad, g, aligned, n_rows):
+def tiled_product(tiles, X, *, R, pad, g, aligned, n_rows, rounded=None):
     """Plain torch product over the packed tiles, in the kernel's order:
     lane c8 of a row sums its N entries of each of the row's tiles, tile
     after tile, and the 8 lanes of a row are added by the xor tree (4, 2,
-    1)."""
+    1).  bf16 tiles in the plain layout take x rounded to bf16 and round
+    each product to bf16, as the kernel does (`rounded`, by default that
+    rule, overrides it)."""
     acc = F64 if tiles.values.dtype == F64 else F32
+    if rounded is None:
+        rounded = tiles.values.dtype == BF16 and not aligned
     V = tiles.values.to(acc)
     X2 = (X[:, None] if X.dim() == 1 else X).to(acc)
+    if rounded:
+        X2 = X2.bfloat16().to(acc)
     n_cols, m = X2.shape
     n_tiles, T = V.shape
     n_vec = 16 // tiles.values.element_size()  # entries of one 16-byte load
@@ -71,7 +79,10 @@ def tiled_product(tiles, X, *, R, pad, g, aligned, n_rows):
     idx = (start + tiles.cols.long() * T)[:, None] + torch.arange(T)  # (n_tiles, T)
     inside = (idx >= 0) & (idx < n_cols)
     xt = X2[idx.clamp(0, n_cols - 1)] * inside[..., None]  # (n_tiles, T, m)
-    prod = (V[..., None] * xt).view(n_tiles, T // n_vec, n_vec, m)
+    prod = V[..., None] * xt
+    if rounded:
+        prod = prod.bfloat16().to(acc)
+    prod = prod.view(n_tiles, T // n_vec, n_vec, m)
     lanes = torch.zeros(n_band, T // n_vec, m, dtype=acc)
     rank = torch.arange(n_tiles) - off[row]  # the tile's place in its row
     for step in range(int(rank.max()) + 1 if n_tiles else 0):
@@ -180,6 +191,14 @@ def test_tiled_product_matches_plain_version(built, dtype, kind, aligned, m, R):
     assert y.shape == yp.shape and mv.relative_gap(y, yp) <= tol
     # On CPU tensors the wrapper is the plain version.
     assert torch.equal(tb.banded_matmat(t, X), yp)
+    if dtype == BF16 and not aligned:
+        # x and the products are rounded to bf16 here, so rounding the
+        # inputs changes nothing: the check must reject x kept in f32 with
+        # exact products, and x rounded with exact products.
+        for x in (X, X.bfloat16().float()):
+            assert mv.relative_gap(tiled_product(tiles, x, R=R, rounded=False, **kw),
+                                   yp) > tol
+        return
     # The check rejects a product that lost precision.
     for bits in (10, 7):
         # bf16 values keep 7 mantissa bits, so they round back exactly.

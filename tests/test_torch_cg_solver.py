@@ -27,7 +27,7 @@ from meshdqn_tpu_torch.ops.banded import BandedMatrix
 from meshdqn_tpu_torch.ops.cg import BlockJacobi
 from meshdqn_tpu_torch.solver import (BandedCGOperators, CGOperators, FlowState,
                                       IPCSConfig, IPCSSolver, evolve_cg_n)
-from tests.torch_helpers import (REPO, cap_threads, jax_cg_leaves, jax_mesh,
+from tests.torch_helpers import (REPO, cap_threads, jax_leaves, jax_mesh,
                                  pack_mesh_arrays, port_mesh, rel)
 
 cap_threads()
@@ -80,7 +80,7 @@ def test_operators_carried_across_step_like_jax(jax_runs, layout, prec):
     (ipcs_step_cg_banded / ipcs_step_cg) match evolve_cg_banded_n /
     evolve_cg_n on drag, lift, u and p."""
     s, u, p, d, l = jax_runs[prec]
-    dev = cg_operators_from_numpy(jax_cg_leaves(s.dev), "cpu", torch.float64)
+    dev = cg_operators_from_numpy(jax_leaves(s.dev), "cpu", torch.float64)
     banded = layout == "banded"
     assert isinstance(dev, BandedCGOperators if banded else CGOperators)
     if banded:
@@ -104,7 +104,7 @@ def test_carried_ell_slices_equal_from_scipy(meshes, jax_runs, prec):
     from meshdqn_tpu_torch.ops.sparse import EllMatrix
     from meshdqn_tpu_torch.solver.ipcs import cg_matrices
 
-    dev = cg_operators_from_numpy(jax_cg_leaves(jax_runs[prec][0].dev), "cpu",
+    dev = cg_operators_from_numpy(jax_leaves(jax_runs[prec][0].dev), "cpu",
                                   torch.float64)
     layout = "ell" if prec == "jacobi" else "banded"
     mats = cg_matrices(meshes[1], IPCSConfig(**F64_CG, cg_layout=layout,
@@ -194,6 +194,54 @@ def test_bf16_banded_and_guards(meshes):
                                          cg_banded_dtype="bf16"), device="cpu")
     with pytest.raises(ValueError, match="cg"):
         IPCSSolver(meshes[1], IPCSConfig(precision="mixed", method="cg"), device="cpu")
+
+
+def test_bf16_banded_products_and_step_match_jax(meshes):
+    """cg_banded_dtype='bf16' from JAX's operators carried across (R = 128,
+    plain layout).  JAX's banded_matmat rounds x and each product to bf16
+    before its f32 sum (meshdqn_tpu/ops/banded.py:241); the port's plain
+    version does the same, so every banded product agrees to f32 rounding
+    of the sum (gap_tolerance of the window; keeping x in f32 misses by
+    2.3e-3 on A1bc).  One step from a common state (after 5 JAX steps)
+    agrees to 1e-2 in u* and u: rounding x to bf16 is discontinuous, so
+    inputs that differ by f32 rounding round to bf16 values 2^-8 apart now
+    and then, and six PCG iterations spread that (measured 3e-3; the
+    pressure, which bf16 operators leave ~40% noisy in either package, is
+    not compared)."""
+    import jax
+
+    import meshdqn_tpu.ops.banded as jbanded
+    from meshdqn_tpu.solver.ipcs import FlowState as JaxState
+    from meshdqn_tpu.solver.ipcs import ipcs_step_cg_banded as jax_step
+    from meshdqn_tpu_torch.ops import matvec as mv
+    from meshdqn_tpu_torch.solver import ipcs_step_cg_banded
+
+    build = jbanded.BandedMatrix.from_scipy.__func__
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbanded.BandedMatrix, "from_scipy",
+                   classmethod(lambda cls, A, **kw: build(cls, A, R=128, **kw)))
+        s = js.IPCSSolver(meshes[0], js.IPCSConfig(**PRODUCTION, cg_banded_dtype="bf16"))
+    dev = cg_operators_from_numpy(jax_leaves(s.dev), "cpu", torch.float32)
+    rng = np.random.default_rng(0)
+    banded = {k: v for k, v in dev._asdict().items() if isinstance(v, BandedMatrix)}
+    assert len(banded) == 7
+    for name, bm in banded.items():
+        assert bm.blocks.dtype == torch.bfloat16 and not bm.aligned128, name
+        for m in (1, 2):
+            X = rng.standard_normal((bm.shape[1], m)).astype(np.float32)
+            want = np.asarray(getattr(s.dev, name).matmat(jnp.asarray(X)))
+            got = bm.matmat(torch.tensor(X)).numpy()
+            assert mv.relative_gap(torch.tensor(got), torch.tensor(want)) <= \
+                mv.gap_tolerance(bm.blocks.shape[2]), (name, m)
+    st, _, _ = s.evolve(s.initial_state(), 5)
+    u0, p0, w0 = np.asarray(st.u), np.asarray(st.p), np.asarray(s._cg_ustar)
+    jn, jus, _ = jax.jit(lambda d, x, w: jax_step(d, x, w, *ITERS))(
+        s.dev, JaxState(jnp.asarray(u0), jnp.asarray(p0)), jnp.asarray(w0))
+    tn, tus, (td, _) = ipcs_step_cg_banded(
+        dev, FlowState(torch.tensor(u0), torch.tensor(p0)), torch.tensor(w0), *ITERS)
+    assert rel(tus.numpy(), np.asarray(jus)) < 1e-2
+    assert rel(tn.u.numpy(), np.asarray(jn.u)) < 1e-2
+    assert torch.isfinite(td)
 
 
 def test_cg_needs_the_card_unless_told(meshes, monkeypatch):

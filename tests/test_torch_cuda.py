@@ -236,8 +236,16 @@ def test_banded_matches_plain_and_repeats_bits(cuda, dtype, kind, aligned, m):
     tol = mv.gap_tolerance(W, xdt)
     assert mv.relative_gap(y, yp) <= tol
     blocks = bm.blocks if dtype != torch.bfloat16 else bm.blocks.float()
-    _controls_fail(lambda b, x: bd.banded_matmat_reference(b, x, **kw), yp, tol,
-                   [blocks, X])
+    plain = lambda b, x: bd.banded_matmat_reference(b, x, **kw)
+    if dtype == torch.bfloat16 and not aligned:
+        # The plain layout rounds x and each product to bf16, as the JAX
+        # package's banded_matmat does: so rounding the inputs changes
+        # nothing, and the controls are the product with x in f32 and exact
+        # products, and with x rounded but exact products.
+        assert mv.relative_gap(plain(blocks, X), yp) > tol
+        assert mv.relative_gap(plain(blocks, X.bfloat16().float()), yp) > tol
+    else:
+        _controls_fail(plain, yp, tol, [blocks, X])
 
 
 @pytest.mark.cuda
@@ -408,3 +416,195 @@ def test_sparse_kernels_count_and_reject(cuda):
         wide = bd.BandedMatrix(blocks=torch.ones(1, 8, 40000, device=cuda), pad=0,
                                g=8, shape=(8, 40000))
         wide @ torch.ones(40000, 2, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["banded", "ell_f32", "ell_f64"])
+def test_sparse_gap_over_the_rows_off_the_boundary(cuda, layout):
+    """An operator like A3bc_s: small mass-matrix entries with a third of
+    its rows eliminated to identity rows, which dominate ||y||.  The kernel
+    is held to its plain version over all rows and over the rows off the
+    boundary; the plain version with x rounded to bf16 off the boundary
+    fails the second, so an error there cannot hide behind the identity
+    rows."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from meshdqn_tpu_torch.ops import banded as bd
+    from meshdqn_tpu_torch.ops import sparse as ell
+
+    A = (_spd_rcm(3000, seed=7) * 1e-4).tolil()
+    bc = np.random.default_rng(7).random(3000) < 1 / 3
+    keep = sp.diags((~bc).astype(float))
+    A = (keep @ A.tocsr() @ keep + sp.diags(bc.astype(float))).tocsr()
+    interior = torch.tensor(~bc, device=cuda)
+    dtype = torch.float64 if layout == "ell_f64" else torch.float32
+    g = torch.Generator(device="cpu").manual_seed(7)
+    X = torch.randn(3000, 2, generator=g, dtype=dtype).to(cuda)
+    if layout == "banded":
+        op = bd.BandedMatrix.from_scipy(A, device=cuda, dtype=dtype)
+        kw = dict(pad=op.pad, g=op.g, aligned=False, n_rows=3000)
+        plain = lambda x: bd.banded_matmat_reference(op.blocks, x, **kw)
+        terms = op.blocks.shape[2]
+    else:
+        op = ell.EllMatrix.from_scipy(A, device=cuda, dtype=dtype)
+        plain = lambda x: ell.ell_matmat_reference(op.cols, op.vals, x)
+        terms = op.cols.shape[1]
+    y, yp = op @ X, plain(X)
+    tol = mv.gap_tolerance(terms, dtype)
+    assert mv.relative_gap(y, yp) <= tol
+    assert mv.relative_gap(y, yp, interior) <= tol
+    Xr = torch.where(interior[:, None], X.bfloat16().to(dtype), X)
+    assert mv.relative_gap(plain(Xr), yp, interior) > tol
+
+
+# --------------------------------------------------------------------------
+# The matvec kernel's split form: the 'df32' step's three launches
+# (ops/matvec.py step_*_df32) against their plain versions.
+# --------------------------------------------------------------------------
+
+SPLIT_LOW = {"ustar": ("L1u", "L1p", "LA1Z", "l1"), "pressure": ("L2p", "L2u", "l2"),
+             "velocity": ("L3s", "L3p", "l3")}
+
+
+def _split_operands(cuda, ns, npr, seed, shifted=False, scale=1.0):
+    """_step_operands plus low limbs: bf16 matrices and f32 vectors at
+    `scale` of the high limbs' magnitude (0 gives zero limbs)."""
+    t = _step_operands(cuda, ns, npr, seed, shifted)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    nu = 2 * ns
+
+    def r(dtype, *shape):
+        v = (scale * torch.randn(*shape, generator=g)).to(dtype)
+        if not shifted:
+            return v.to(cuda)
+        buf = torch.empty(v.numel() + 1, dtype=dtype, device=cuda)[1:].view(v.shape)
+        return buf.copy_(v)
+
+    b, f = torch.bfloat16, torch.float32
+    t.update(L1u=r(b, nu, nu), L1p=r(b, nu, npr), LA1Z=r(b, nu, nu), l1=r(f, nu),
+             L2p=r(b, npr, npr), L2u=r(b, npr, nu), l2=r(f, npr), L3s=r(b, ns, ns),
+             L3p=r(b, 2, ns, npr), l3=r(f, nu))
+    return t
+
+
+def _split_forms(ns, npr):
+    """(split wrapper, plain version, f32 grouped wrapper, operand names, the
+    f32 form's operand names, terms summed into one output)."""
+    return [
+        (mv.step_ustar_df32, mv.step_ustar_df32_reference, mv.step_ustar,
+         ("F1u", "F1p", "A1Z", "rho", "k1", *SPLIT_LOW["ustar"], "u", "p", "c"),
+         ("F1u", "F1p", "A1Z", "rho", "k1", "u", "p", "c"), 2 * (4 * ns + npr)),
+        (mv.step_pressure_df32, mv.step_pressure_df32_reference, mv.step_pressure,
+         ("F2p", "F2u", "k2", *SPLIT_LOW["pressure"], "p", "u_star"),
+         ("F2p", "F2u", "k2", "p", "u_star"), 2 * (npr + 2 * ns)),
+        (mv.step_velocity_df32, mv.step_velocity_df32_reference, mv.step_velocity,
+         ("F3s", "F3p", "k3", *SPLIT_LOW["velocity"], "u_star", "dp"),
+         ("F3s", "F3p", "k3", "u_star", "dp"), 2 * (ns + npr)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("ns,npr", GROUP_SIZES)
+def test_split_launches_match_plain(cuda, ns, npr, shifted):
+    """Low limbs as large as the high ones, so a dropped or misrouted low
+    term cannot hide below f32 rounding: each split launch within
+    gap_tolerance of its plain version (twice the terms: both limbs), the
+    bits repeating, the plain version without its low limbs outside the
+    tolerance; one launch each, counted."""
+    t = _split_operands(cuda, ns, npr, seed=ns * 11 + npr, shifted=shifted)
+    for split, plain, _, names, _, terms in _split_forms(ns, npr):
+        args = [t[n] for n in names]
+        before = split.launches, mv.matvec.launches
+        y = _tuple(split(*args))
+        assert (split.launches, mv.matvec.launches) == (before[0] + 1, before[1])
+        assert all(map(torch.equal, y, _tuple(split(*args))))
+        yp = torch.cat(_tuple(plain(*args)))
+        tol = mv.gap_tolerance(terms)
+        assert mv.relative_gap(torch.cat(y), yp) <= tol
+        dropped = [torch.zeros_like(a) if n[0] in "Ll" else a for n, a in zip(names, args)]
+        assert mv.relative_gap(torch.cat(_tuple(plain(*dropped))), yp) > tol
+        # The hi products through single launches: the plain version's other
+        # order, within the same tolerance.
+        ys = torch.cat(_tuple(plain(*args, apply=mv.matvec)))
+        assert mv.relative_gap(torch.cat(y), ys) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npr", GROUP_SIZES[:4])
+def test_split_launches_with_zero_low_limbs_equal_the_f32_form(cuda, ns, npr):
+    """With every low limb zero the low sums are +0, so each split launch
+    gives the f32 grouped launch's values exactly."""
+    t = _split_operands(cuda, ns, npr, seed=ns + npr, scale=0.0)
+    for split, _, grouped, names, f32_names, _ in _split_forms(ns, npr):
+        y = _tuple(split(*(t[n] for n in names)))
+        assert all(map(torch.equal, y, _tuple(grouped(*(t[n] for n in f32_names)))))
+
+
+@pytest.mark.cuda
+def test_split_launches_reject_what_they_do_not_take(cuda):
+    t = _split_operands(cuda, 6, 3, seed=2)
+    args = lambda **kw: [({**t, **kw})[n] for n in (
+        "F1u", "F1p", "A1Z", "rho", "k1", "L1u", "L1p", "LA1Z", "l1", "u", "p", "c")]
+    mv.step_ustar_df32(*args())
+    with pytest.raises(TypeError):  # low limbs are bf16
+        mv.step_ustar_df32(*args(L1u=t["L1u"].float()))
+    with pytest.raises(TypeError):  # vector limbs f32
+        mv.step_ustar_df32(*args(l1=t["l1"].bfloat16()))
+    with pytest.raises(ValueError):  # the limbs' shapes follow the high ones'
+        mv.step_ustar_df32(*args(L1p=t["L1p"][:, :2].contiguous()))
+    with pytest.raises(ValueError, match="shared memory"):  # 2 x 30,001 floats
+        z = lambda *shape, dtype=torch.float32: torch.zeros(*shape, device=cuda,
+                                                            dtype=dtype)
+        mv.step_pressure_df32(z(1, 1), z(1, 30000), z(1), z(1, 1, dtype=torch.bfloat16),
+                              z(1, 30000, dtype=torch.bfloat16), z(1), z(1), z(30000))
+
+
+# --------------------------------------------------------------------------
+# The solver's paths on the card, launch by launch, on the ys930 pack mesh.
+# --------------------------------------------------------------------------
+
+# Per config: {counter: launches a step}; counters not named stay at 0.
+MODES = {
+    "f32": ({"precision": "f32"}, {"step_ustar": 1, "step_pressure": 1,
+                                   "step_velocity": 1}),
+    "df32": ({"precision": "df32"}, {"step_ustar_df32": 1, "step_pressure_df32": 1,
+                                     "step_velocity_df32": 1}),
+    "f32_unfused": ({"precision": "f32", "fused": False}, {"matvec": 3, "ell": 6}),
+    "mixed": ({"precision": "mixed"}, {"matvec": 5, "ell": 8}),
+    "f64": ({}, {"ell": 6}),
+}
+_MATVEC_COUNTERS = ("matvec", "matvec_dual", "step_ustar", "step_pressure",
+                    "step_velocity", "step_ustar_df32", "step_pressure_df32",
+                    "step_velocity_df32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+def test_solver_modes_launch_their_kernels(cuda, mode):
+    """IPCSSolver on the card for each dense mode: 3 steps from rest make
+    exactly the mode's launches a step, no call of a plain sparse version,
+    and finite drags of the mode's dtype."""
+    import pathlib
+
+    import numpy as np
+
+    from meshdqn_tpu_torch.mesh import TriMesh
+    from meshdqn_tpu_torch.ops import sparse as ell
+    from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    z = np.load(repo / "checkpoints" / "ys930_results" / "ground_truth.npz")
+    cfg, per_step = MODES[mode]
+    s = IPCSSolver(TriMesh(z["coords"], z["cells"]), IPCSConfig(**cfg))
+    assert s.device.type == "cuda"
+    counters = lambda: {**{k: getattr(mv, k).launches for k in _MATVEC_COUNTERS},
+                        "ell": ell.ell_matmat.launches,
+                        "ell_plain": ell.ell_matmat_reference.calls}
+    before = counters()
+    st, d, _ = s.evolve(s.initial_state(), 3)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in counters().items()}
+    assert made == {k: 3 * per_step.get(k, 0) for k in made}
+    assert d.dtype == s.pressure_dtype and torch.isfinite(d).all()

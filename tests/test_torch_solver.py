@@ -115,16 +115,6 @@ def test_no_silent_cpu(small_mesh, monkeypatch):
         ipcs_mod.resolve_device(None)
 
 
-@pytest.mark.parametrize("overrides", [
-    {"precision": "f64"}, {"precision": "mixed"}, {"precision": "df32"},
-    # method='cg' is ported now; the mixed unfused step is not.
-    {"precision": "mixed", "fused": False}, {"precision": "f32", "fused": False},
-])
-def test_unported_paths_raise(small_mesh, overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IPCSSolver(small_mesh, IPCSConfig(**overrides), device="cpu")
-
-
 def test_config_loads_the_repo_yaml_flow_keys():
     """Every flow key the JAX IPCSConfig takes is a field here with the same
     default, so configs/*.yaml values load unchanged."""

@@ -61,10 +61,11 @@ def rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def jax_cg_leaves(dev) -> dict:
-    """The leaves of a meshdqn_tpu CGOperators or BandedCGOperators as numpy
-    arrays, in the form meshdqn_tpu_torch.convert.cg_operators_from_numpy
-    takes."""
+def jax_leaves(dev) -> dict:
+    """The leaves of a meshdqn_tpu operator tuple (CGOperators,
+    BandedCGOperators, DeviceOperators, SplitLow) as numpy arrays, in the
+    form meshdqn_tpu_torch.convert's *_from_numpy functions take; None
+    stays None."""
     from meshdqn_tpu.ops.banded import BandedMatrix
     from meshdqn_tpu.ops.cg import BlockJacobi
     from meshdqn_tpu.ops.convection import ConvectionKernel
@@ -73,7 +74,9 @@ def jax_cg_leaves(dev) -> dict:
 
     out = {}
     for name, v in dev._asdict().items():
-        if isinstance(v, EllMatrix):
+        if v is None:
+            out[name] = None
+        elif isinstance(v, EllMatrix):
             out[name] = {"cols": np.asarray(v.cols), "vals": np.asarray(v.vals),
                          "shape": v.shape}
         elif isinstance(v, BandedMatrix):
