@@ -26,6 +26,11 @@ The paths, each driven through IPCSSolver, the entry point a user calls:
   the card, every removal's interpolated drag and lift computed on the
   device, and on ys930 the first three removals re-simulated (5000 fused
   f32 steps each, the grouped matvec kernel's launches).
+* training (cli.train's main, the entry a user calls): eight sweeps of
+  the ys930 pack's config at its full width (32 envs, batch 32, a
+  50000-transition ring on the card), resumed from the JAX package's
+  checkpoint converted (meshdqn_tpu_torch/data/ys930_ckpt_state.npz); no
+  kernel lies on this path, and none is launched.
 
 The kernels are built from source at first use.  Phases, one JSON line each
 (any failure raises and the script exits non-zero without the final line):
@@ -104,6 +109,22 @@ The kernels are built from source at first use.  Phases, one JSON line each
              drag within 1e-3 of the f32 re-simulation's, lift printed; the
              JAX package's verified TPU run's first three re-simulated drag
              errors printed beside
+  train      (a) four gradient steps from the converted checkpoint on the
+             JAX fixture's batches (meshdqn_tpu_torch/data/
+             ys930_train_fixture.npz), f32 and f64: f64 within 1e-11 /
+             1e-9 of JAX's f64 losses / params1 update, f32's deviation
+             within 2x of JAX's own; (b) the batched Q-network forward over
+             the pool's 64 states against the per-graph forward, by the 2x
+             rule against the per-graph forward in f64, the same argmax;
+             (c) cli.train's main, 8 sweeps, counters zeroed: finite
+             losses, gradient steps = queued batches, ring = pushes with
+             every non-final slot's next state the env's next slot's state,
+             a second Trainer resuming the same counters and learner, no
+             kernel launched; printed: ms per steady sweep (one applying
+             the previous sweep's batches) and its MESHDQN_TIMING
+             buckets, syncs, peak memory, then 2 profiled sweeps (device
+             busy and ops, syncs a sweep) and 32 gradient steps between
+             events; (d) one deploy probe episode
 
 then the kernels summary line, nvidia-smi's line, and the result line.
 """
@@ -1520,6 +1541,320 @@ def deploy_phase(cuda, flush):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Training (cli.train): the learner against the JAX package's fixture, the
+# batched forward, a full-width resumed run and a deploy probe.
+# ----------------------------------------------------------------------
+
+TRAIN_SWEEPS = 8  # sweeps of the resumed full-width run (--max-steps +8*32)
+MEASURED_SWEEPS = 2  # sweeps profiled after it
+UPDATE_REL_64 = 1e-9  # f64 steps against the JAX package's f64 steps
+LOSS_REL_64 = 1e-11
+
+
+def train_fixture():
+    """(fixture arrays, the converted ys930 learner's arrays, DQNConfig)."""
+    from meshdqn_tpu_torch.rl import DQNConfig
+
+    data = os.path.join(REPO, "meshdqn_tpu_torch", "data")
+    with np.load(os.path.join(data, "ys930_train_fixture.npz")) as z:
+        fx = {k: z[k] for k in z.files}
+    with np.load(os.path.join(data, "ys930_ckpt_state.npz")) as z:
+        state = {k: z[k] for k in z.files if k not in ("step", "extras_json")}
+    cfg = json.loads(str(fx["dqn_config_json"]))
+    cfg["milestones"] = tuple(cfg["milestones"])
+    return fx, state, DQNConfig(**cfg)
+
+
+def train_steps_vs_fixture(dev, fx, state, cfg):
+    """(a) K gradient steps from the converted checkpoint on the fixture's
+    pool, f32 and f64, against the JAX package's: f64 within LOSS_REL_64 /
+    UPDATE_REL_64, f32's deviation from f64 within 2x of JAX's own."""
+    from meshdqn_tpu_torch.convert import dqn_state_from_numpy, dqn_state_to_numpy
+    from meshdqn_tpu_torch.rl import ReplayStore, train_step_many_idx
+
+    store = ReplayStore(**{k: torch.from_numpy(fx[f"pool/{k}"]).to(dev)
+                           for k in ReplayStore._fields})
+    idx = torch.from_numpy(fx["idx"]).to(dev)
+    keys = sorted(k for k in state if k.startswith("params1/"))
+    vec = lambda get: np.concatenate([np.asarray(get(k), np.float64).ravel()  # noqa: E731
+                                      for k in keys])
+    before = vec(lambda k: state[k])
+    d64 = vec(lambda k: fx["f64/" + k[len("params1/"):]]) - before
+    d32 = vec(lambda k: fx["f32/" + k[len("params1/"):]]) - before
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        st = dqn_state_from_numpy(state, cfg, dev, dtype)
+        st, losses = train_step_many_idx(st, store, idx, cfg)
+        arrays = dqn_state_to_numpy(st)
+        out[name] = (losses.cpu().numpy(), vec(lambda k: arrays[k]) - before)
+    rms = lambda v: float(np.sqrt(np.mean(np.square(v))))  # noqa: E731
+    l64 = fx["loss_f64"]
+    upd = lambda d: float(np.linalg.norm(d - d64) / np.linalg.norm(d64))  # noqa: E731
+    row = {"phase": "train", "step": "train_step_fixture", "K": int(idx.shape[0]),
+           "B": int(idx.shape[1]), "config": {k: getattr(cfg, k) for k in (
+               "target_mode", "double", "target_clip", "cql_alpha", "grad_clip", "head")},
+           "loss_f64_rel_dev": float(np.max(np.abs(out["f64"][0] / l64 - 1))),
+           "update_f64_rel_dev": upd(out["f64"][1]),
+           "loss_f32_rms_dev": {"port": rms(out["f32"][0] / l64 - 1),
+                                "jax": rms(fx["loss_f32"] / l64 - 1)},
+           "update_f32_rel_dev": {"port": upd(out["f32"][1]), "jax": upd(d32)},
+           "losses_f32": out["f32"][0].tolist(), "jax_losses_f32": fx["loss_f32"].tolist()}
+    emit(row)
+    if not (row["loss_f64_rel_dev"] <= LOSS_REL_64 and row["update_f64_rel_dev"] <= UPDATE_REL_64):
+        raise AssertionError("train: the f64 steps differ from the JAX package's")
+    for key in ("loss_f32_rms_dev", "update_f32_rel_dev"):
+        if not row[key]["port"] <= 2 * row[key]["jax"]:
+            raise AssertionError(f"train: f32 {key} outside 2x of the JAX package's")
+    return row
+
+
+def batched_forward_vs_single(dev, fx, state, cfg):
+    """(b) batched_forward over the pool's 64 states against the per-graph
+    forward, both on the card, by the repo's 2x rule: held to the exact
+    evaluation of the same network (the per-graph forward in f64 on the
+    card, which runs none of the batch axis's code), the batch's deviation
+    (RMS over the graphs of max |dQ| / max |Q|) within 2x of the per-graph
+    f32 forward's, and the same argmax as both.  Two f32 forwards that sum
+    in different orders each lie up to ~2e-5 of max |Q| from the exact
+    values, so their gap to each other is printed, not gated.  The CPU's
+    batch is printed beside."""
+    from meshdqn_tpu_torch.convert import dqn_state_from_numpy
+    from meshdqn_tpu_torch.env import GraphState
+    from meshdqn_tpu_torch.models import batched_forward, forward
+
+    graphs = GraphState(*(torch.from_numpy(fx[f"pool/{k}"][0])
+                          for k in ("x", "ei", "ea", "nm", "em")))
+    on_dev = GraphState(*(t.to(dev) for t in graphs))
+    params = dqn_state_from_numpy(state, cfg, dev).params1
+    with torch.no_grad():
+        q = batched_forward(params, on_dev, topk=cfg.topk, head=cfg.head).cpu().numpy()
+        per_graph = lambda p: np.stack([  # noqa: E731
+            forward(p, GraphState(*(t[b] for t in graphs)), topk=cfg.topk,
+                    head=cfg.head).cpu().numpy() for b in range(len(q))])
+        single = per_graph(params)
+        q64 = per_graph(dqn_state_from_numpy(state, cfg, dev, torch.float64).params1)
+        q_cpu = batched_forward(dqn_state_from_numpy(state, cfg, "cpu").params1, graphs,
+                                topk=cfg.topk, head=cfg.head).numpy()
+    scale = np.abs(q64).max(1)
+    dev_of = lambda a: np.abs(a - q64).max(1) / scale  # noqa: E731
+    rms = lambda v: float(np.sqrt(np.mean(np.square(v))))  # noqa: E731
+    row = {"phase": "train", "step": "batched_forward", "graphs": len(q),
+           "rms_dev_from_f64": {"batched": rms(dev_of(q)), "single": rms(dev_of(single)),
+                                "cpu_batched": rms(dev_of(q_cpu))},
+           "max_rel_dev_vs_single": float((np.abs(q - single).max(1) / scale).max()),
+           "argmax_equal": bool((q.argmax(1) == single.argmax(1)).all()
+                                and (q.argmax(1) == q64.argmax(1)).all()),
+           "argmax_equal_cpu": bool((q.argmax(1) == q_cpu.argmax(1)).all())}
+    emit(row)
+    dev_rms = row["rms_dev_from_f64"]
+    if not (row["argmax_equal"] and np.isfinite(q).all()
+            and dev_rms["batched"] <= 2 * dev_rms["single"]):
+        raise AssertionError("train: batched_forward differs from the per-graph forward")
+    return row
+
+
+def kernel_busy(fn):
+    """(fn(), the summed device time of the kernels, copies and fills it ran
+    in ms, their count), from torch.profiler's raw device records (CUDA
+    activity only; key_averages' parse of a whole sweep's ~50k launches
+    and their CPU ops takes longer than the sweep)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy_ns, ops = 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            busy_ns += ev.duration_ns()
+            ops += 1
+    return out, busy_ns / 1e6, ops
+
+
+def ring_consistent(trainer, pushes: int) -> int:
+    """Slots of the ring as pushed: slot s*n+i holds env i's s-th transition
+    of the run, so each non-final transition's next state is the state of
+    the env's next slot.  Returns the number of slot pairs checked."""
+    n = len(trainer.envs)
+    st = trainer.replay.store
+    checked = 0
+    for slot in range(pushes - n):
+        if bool(st.non_final[slot]):
+            for ring in ("x", "ei", "nm", "em"):
+                r = getattr(st, ring)
+                if not torch.equal(r[1, slot], r[0, slot + n]):
+                    raise AssertionError(f"train: ring slot {slot + n} is not the next "
+                                         f"state of slot {slot} ({ring})")
+            checked += 1
+    return checked
+
+
+def sweep_marks(fn):
+    """(fn(), marks): a (perf_counter, MESHDQN_TIMING buckets, num_grads)
+    mark at the end of every full sweep of the Trainer that fn runs (where
+    Trainer.train calls _maybe_stop)."""
+    from meshdqn_tpu_torch.train import Trainer
+
+    marks, inner = [], Trainer._maybe_stop
+
+    def mark(self):
+        marks.append((time.perf_counter(), dict(self.timing), self.dqn.num_grads))
+        inner(self)
+
+    Trainer._maybe_stop = mark
+    try:
+        return fn(), marks
+    finally:
+        Trainer._maybe_stop = inner
+
+
+def steady_sweeps(marks, n_envs: int) -> dict:
+    """The run's sweeps between two marks that applied a whole sweep's
+    batches (n_envs gradient steps, queued by the sweep before): their wall
+    ms and the MESHDQN_TIMING buckets' ms, as a mean and each.  The run's
+    first sweeps (a resumed run starts with an empty ring), and its last,
+    whose batches are applied after the return, are not steady."""
+    sweeps = []
+    for (t0, b0, g0), (t1, b1, g1) in zip(marks, marks[1:]):
+        if g1 - g0 == n_envs:
+            sweeps.append((1e3 * (t1 - t0), {k: 1e3 * (b1[k] - b0[k]) for k in b1
+                                             if k != "sweeps"}))
+    mean = lambda v: float(np.mean(v)) if v else None  # noqa: E731
+    return {"count": len(sweeps), "of_marked": max(len(marks) - 1, 0),
+            "grad_steps_each": n_envs, "ms_each": [ms for ms, _ in sweeps],
+            "ms_mean": mean([ms for ms, _ in sweeps]),
+            "buckets_ms_mean": {k: mean([b[k] for _, b in sweeps]) for k in
+                                (sweeps[0][1] if sweeps else {})}}
+
+
+def train_run(dev, tmp, fx, state, cfg, sweeps=TRAIN_SWEEPS, measured=MEASURED_SWEEPS,
+              overrides=()):
+    """(c) cli.train's main at the pack's config, resumed from the converted
+    checkpoint in a temp run dir, for `sweeps` sweeps; (d) one deploy probe."""
+    from meshdqn_tpu_torch.cli import train as cli_train
+    from meshdqn_tpu_torch.convert import dqn_state_from_numpy, dqn_state_to_numpy
+    from meshdqn_tpu_torch.rl import train_step_many_idx
+    from meshdqn_tpu_torch.train import CheckpointManager, Trainer
+    from meshdqn_tpu_torch.utils import Config
+
+    marks = [("start", time.perf_counter())]
+    cfg_path = pack_run_dir(tmp, "ys930")
+    with np.load(os.path.join(REPO, "meshdqn_tpu_torch", "data", "ys930_ckpt_state.npz")) as z:
+        step0, extras0 = int(z["step"]), json.loads(str(z["extras_json"]))
+    run_dir = os.path.join(tmp, "ys930_results")
+    CheckpointManager(os.path.join(run_dir, "ckpt")).save(
+        step0, dqn_state_from_numpy(state, cfg, dev), extras0)
+    config = Config.from_yaml(cfg_path).apply_overrides([f"save_dir={tmp}", *overrides])
+    n_envs = config.agent.num_parallel
+    gs0, grads0 = int(extras0["global_step"]), int(state["num_grads"])
+    pushes = sweeps * n_envs
+    zero_counters()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    os.environ["MESHDQN_TIMING"] = "1"
+    t0 = time.perf_counter()
+    argv = ["--config", cfg_path, "--max-steps", str(gs0 + pushes), f"save_dir={tmp}",
+            *overrides] + (["--cpu"] if dev.type == "cpu" else [])
+    counted = count_syncs if dev.type == "cuda" else (lambda fn: (fn(), None))
+    (trainer, syncs), ends = sweep_marks(lambda: counted(lambda: cli_train.main(argv)))
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    trainer.metrics._flush_losses()
+    losses = np.asarray(trainer.metrics.losses)
+    queued = pushes - (config.optimizer.batch_size - 1)
+    timing = dict(trainer.timing)
+    marks.append(("run", time.perf_counter()))
+    checked = ring_consistent(trainer, pushes)
+    # A second Trainer resumes the checkpoint the run ended with.
+    second = Trainer(config, resume=True, device=dev)
+    resumed = {"global_step": second.state.global_step, "episode": second.state.episode,
+               "num_grads": second.dqn.num_grads}
+    same = all(np.array_equal(a, b) for a, b in zip(dqn_state_to_numpy(second.dqn).values(),
+                                                   dqn_state_to_numpy(trainer.dqn).values()))
+    del second
+    marks.append(("ring_and_resume", time.perf_counter()))
+    gate = {
+        "losses_finite": bool(len(losses) and np.isfinite(losses).all()),
+        "num_grads_equal_queued": trainer.dqn.num_grads - grads0 == queued,
+        "ring_equal_pushes": (len(trainer.replay), trainer.replay._pos) == (pushes, pushes),
+        "resumed_counters_equal": resumed == {"global_step": trainer.state.global_step,
+                                              "episode": trainer.state.episode,
+                                              "num_grads": trainer.dqn.num_grads},
+        "resumed_learner_equal": same,
+        "no_kernel_launches": launches == NO_LAUNCHES,
+    }
+    row = {"phase": "train", "step": "run", "nvidia_smi": nvidia_smi() if dev.type == "cuda"
+           else None, "envs": n_envs, "batch": config.optimizer.batch_size,
+           "replay_capacity": config.agent.replay_capacity, "sweeps": sweeps,
+           "global_step": [gs0, trainer.state.global_step],
+           "num_grads": [grads0, trainer.dqn.num_grads], "queued_batches": queued,
+           "episodes_finished": trainer.state.episode - step0,
+           "ring_slot_pairs_checked": checked, "wall_s_with_setup": wall_s,
+           "timing_s": timing, "steady_sweeps": steady_sweeps(ends, n_envs),
+           "syncs_whole_run": syncs, "peak_mem_GB": peak / 1e9 if peak else None,
+           "launches": launches, "loss_median": float(np.median(losses)), "gate": gate}
+    # Measured: MEASURED sweeps under the profiler, counting syncs (the
+    # run's closing flush, metrics write and checkpoint included), and the
+    # gradient step alone between events.
+    if dev.type == "cuda" and measured:
+        gs = trainer.state.global_step
+        (s, busy_ms, ops), m_syncs = count_syncs(lambda: kernel_busy(
+            lambda: trainer.train(max_steps=gs + measured * n_envs)))
+        marks.append(("measured_sweeps", time.perf_counter()))
+        idx = torch.from_numpy(np.stack([trainer.replay.sample_indices(
+            config.optimizer.batch_size, np.random.default_rng(k)) for k in range(n_envs)])
+        ).to(dev)
+        train_step_many_idx(trainer.dqn, trainer.replay.store, idx[:2], trainer.dqn_cfg)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        train_step_many_idx(trainer.dqn, trainer.replay.store, idx, trainer.dqn_cfg)
+        end.record()
+        host_ms = (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        (_, step_busy, step_ops) = kernel_busy(lambda: train_step_many_idx(
+            trainer.dqn, trainer.replay.store, idx[:4], trainer.dqn_cfg))
+        marks.append(("grad_step_timing", time.perf_counter()))
+        row.update({
+            "measured_sweeps": measured, "device_busy_ms_per_sweep": busy_ms / measured,
+            "device_ops_per_sweep": ops / measured, "syncs_per_sweep": m_syncs / measured,
+            "measured_wall_s_profiled": s["wall_s"],
+            "grad_step_ms_events": start.elapsed_time(end) / n_envs,
+            "grad_step_host_enqueue_ms": host_ms / n_envs,
+            "grad_step_device_busy_ms": step_busy / 4, "grad_step_device_ops": step_ops / 4,
+            "grad_steps_timed": n_envs})
+    # (d) one greedy deploy probe episode on the card.
+    t2 = time.perf_counter()
+    probe = trainer._deploy_probe()
+    row["deploy_probe"] = dict(probe, wall_s=time.perf_counter() - t2)
+    marks.append(("deploy_probe", time.perf_counter()))
+    row["phase_seconds"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    gate["probe_reward_finite"] = bool(np.isfinite(probe["reward"]))
+    emit(row)
+    failed = [k for k, v in gate.items() if not v]
+    if failed:
+        raise AssertionError(f"train: run gates failed: {failed}")
+    return row
+
+
+def train_phase(dev):
+    """The training path on `dev`: (a)-(d) above."""
+    fx, state, cfg = train_fixture()
+    train_steps_vs_fixture(dev, fx, state, cfg)
+    batched_forward_vs_single(dev, fx, state, cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        return train_run(dev, tmp, fx, state, cfg)
+    finally:
+        os.environ.pop("MESHDQN_TIMING", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diag", action="store_true",
@@ -1638,6 +1973,10 @@ def main(argv=None) -> int:
             by_path[k]["deploy"] = counted[k]
     for k in GROUPED:
         by_form[k] += counted[k]
+
+    # Training: no TPU kernel lies on its path (train_phase asserts that it
+    # launches none of the port's kernels).
+    train_phase(cuda)
 
     src = {"matvec": "matvec", "matvec_dual": "matvec", "matvec_group": "matvec",
            "matvec_group_df32": "matvec", "banded_matmat": "banded", "ell_matmat": "ell"}

@@ -1,9 +1,12 @@
-"""Carry operators across from the JAX package.
+"""Carry operators, weights and the learner across from the JAX package.
 
 The solvers' "weights" are their operators.  Given the leaves of a
 meshdqn_tpu operator pytree as numpy arrays (the caller converts them; this
 package never imports JAX), build the port's counterpart, so both steppers
-can run from identical operators.
+can run from identical operators.  The same holds for the Q-network's
+parameters and for the whole DQN learner (both nets, both Adam states and
+the counters), which scripts/torch_convert_checkpoint.py writes from orbax
+checkpoints.
 """
 from __future__ import annotations
 
@@ -142,3 +145,44 @@ def load_deploy_weights(path, device):
         step = int(z["step"])
         extras = json.loads(str(z["extras_json"]))
     return noderemoval_params_from_numpy(leaves, device), step, extras
+
+
+def dqn_state_from_numpy(arrays: dict, cfg, device, dtype=torch.float32):
+    """The port's DQNState (rl/dqn.py) from a JAX DQNState's leaves as numpy
+    arrays, keyed as scripts/torch_convert_checkpoint.py writes them
+    (`rl.dqn.state_arrays`' keys: params1/<layer>/<name>, params2/...,
+    opt{1,2}/mu/..., opt{1,2}/nu/..., opt{1,2}/count and schedule_count
+    (optax's Adam and schedule counts), num_grads, select), its float
+    leaves as `dtype` on `device`."""
+    from .rl.dqn import init_dqn, load_state_arrays
+
+    def tree(net):
+        out: dict = {}
+        for key, value in arrays.items():
+            if key.startswith(f"params{net}/"):
+                _, layer, name = key.split("/")
+                out.setdefault(layer, {})[name] = torch.tensor(
+                    np.asarray(value), dtype=dtype, device=device)
+        return out
+
+    return load_state_arrays(init_dqn(tree(1), tree(2), cfg), arrays, cfg)
+
+
+def dqn_state_to_numpy(state) -> dict:
+    """The inverse of dqn_state_from_numpy: the learner's arrays as numpy,
+    keyed as `rl.dqn.state_arrays`."""
+    from .rl.dqn import state_arrays
+
+    return {k: v.detach().cpu().numpy() for k, v in state_arrays(state).items()}
+
+
+def load_dqn_state(path, cfg, device, dtype=torch.float32):
+    """(DQNState, step, extras) from a file written by
+    scripts/torch_convert_checkpoint.py --state."""
+    import json
+
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files if k not in ("step", "extras_json")}
+        step = int(z["step"])
+        extras = json.loads(str(z["extras_json"]))
+    return dqn_state_from_numpy(arrays, cfg, device, dtype), step, extras

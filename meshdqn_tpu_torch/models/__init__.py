@@ -10,7 +10,7 @@ from .layers import (
     topk_init,
     topk_pool,
 )
-from .noderemoval import forward, init_params, stage_sizes
+from .noderemoval import batched_forward, forward, init_params, stage_sizes
 
 __all__ = [
     "gcn_conv",
@@ -23,6 +23,7 @@ __all__ = [
     "sage_init",
     "topk_init",
     "topk_pool",
+    "batched_forward",
     "forward",
     "init_params",
     "stage_sizes",

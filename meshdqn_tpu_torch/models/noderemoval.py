@@ -46,13 +46,16 @@ def stage_sizes(n_nodes: int, ratio: float, n_stages: int = 4) -> list[int]:
     return sizes
 
 
-def init_params(seed: int, in_dim: int, output_dim: int, conv_width: int = 64,
+def init_params(seed, in_dim: int, output_dim: int, conv_width: int = 64,
                 device=None):
     """Random parameters of the JAX package's shapes and init scheme (all
     weights xavier-normal gain 0.9, biases standard normal, GCN biases
-    zero), drawn from a torch generator seeded with `seed`: the same
-    distribution as `meshdqn_tpu.models.init_params`, not the same draws."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    zero), drawn from `seed`: a CPU torch.Generator, whose stream the draws
+    advance (so two calls give two nets), or an int to seed a fresh one.
+    The same distribution as `meshdqn_tpu.models.init_params`, not the same
+    draws."""
+    gen = (seed if isinstance(seed, torch.Generator)
+           else torch.Generator(device="cpu").manual_seed(seed))
     w = conv_width
     params = {
         "conv1": sage_init(gen, in_dim, w),
@@ -74,26 +77,15 @@ def params_device(params) -> torch.device:
     return params["lin3"]["w"].device
 
 
-def forward(params, g: GraphState, topk: float = 0.5, embedding: bool = False,
-            head: str = "softmax"):
-    """Single-graph forward pass -> (A,) action values, on the parameters'
-    device (the graph's tensors are moved there).
-
-    head='softmax' reproduces the reference quirk (softmax over Q-values,
-    airfoilgcnn.py:143); head='linear' returns the raw Q-values.  Greedy
-    argmax is the same under both."""
-    device = params_device(params)
-    x = g.x.to(device).float()
-    ei = g.edge_index.to(device)
-    em = g.edge_mask.to(device)
-    nm = g.node_mask.to(device)
-    k1, k2, k4, k5 = stage_sizes(x.shape[0], topk)
+def _q_network(params, x, ei, em, nm, topk, embedding, head):
+    """The network on one graph (x (N, F)) or a batch (x (B, N, F))."""
+    k1, k2, k4, k5 = stage_sizes(x.shape[-2], topk)
 
     def block(conv_fn, cparams, pparams, x, ei, em, nm, k_static):
         h = torch.relu(conv_fn(cparams, x, ei, em, nm))
         pg = topk_pool(pparams, h, ei, em, nm, topk, k_static)
         read = torch.cat([global_max_pool(pg.x, pg.node_mask),
-                          global_mean_pool(pg.x, pg.node_mask)])
+                          global_mean_pool(pg.x, pg.node_mask)], dim=-1)
         return pg, read
 
     pg, x1 = block(sage_conv, params["conv1"], params["pool1"], x, ei, em, nm, k1)
@@ -101,7 +93,7 @@ def forward(params, g: GraphState, topk: float = 0.5, embedding: bool = False,
     pg, x4 = block(gcn_conv, params["conv4"], params["pool4"], *pg, k4)
     pg, x5 = block(gcn_conv, params["conv5"], params["pool5"], *pg, k5)
 
-    h = x1 + x2 + x4 + x5  # (2w,)
+    h = x1 + x2 + x4 + x5  # (..., 2w)
     if embedding:
         return h
     h = torch.relu(linear(params["lin1"], h))
@@ -110,3 +102,33 @@ def forward(params, g: GraphState, topk: float = 0.5, embedding: bool = False,
     if head == "softmax":
         return torch.softmax(h, dim=-1)
     return h
+
+
+def forward(params, g: GraphState, topk: float = 0.5, embedding: bool = False,
+            head: str = "softmax"):
+    """Single-graph forward pass -> (A,) action values, on the parameters'
+    device (the graph's tensors are moved there).
+
+    head='softmax' reproduces the reference quirk (softmax over Q-values,
+    airfoilgcnn.py:143); head='linear' returns the raw Q-values.  Greedy
+    argmax is the same under both.  The features are cast to the
+    parameters' dtype, as in batched_forward."""
+    device = params_device(params)
+    x = g.x.to(device=device, dtype=params["lin3"]["w"].dtype)
+    return _q_network(params, x, g.edge_index.to(device),
+                      g.edge_mask.to(device), g.node_mask.to(device), topk,
+                      embedding, head)
+
+
+def batched_forward(params, graphs: GraphState, topk: float = 0.5,
+                    head: str = "softmax"):
+    """graphs: a GraphState with a leading batch axis on every tensor ->
+    (B, A), in one pass of batched kernels (the JAX package vmaps `forward`).
+
+    The features are cast to the parameters' dtype (f32 in training; f64
+    parameters give the exact evaluation the parity tests hold f32 to)."""
+    device = params_device(params)
+    x = graphs.x.to(device=device, dtype=params["lin3"]["w"].dtype)
+    return _q_network(params, x, graphs.edge_index.to(device),
+                      graphs.edge_mask.to(device), graphs.node_mask.to(device),
+                      topk, False, head)

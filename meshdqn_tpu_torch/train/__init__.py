@@ -1,3 +1,7 @@
+from .checkpoint import CheckpointManager
 from .gtcache import gt_fingerprint, load_or_compute_ground_truth
+from .metrics import MetricsRecorder
+from .trainer import Trainer, TrainerState
 
-__all__ = ["gt_fingerprint", "load_or_compute_ground_truth"]
+__all__ = ["CheckpointManager", "MetricsRecorder", "Trainer", "TrainerState",
+           "gt_fingerprint", "load_or_compute_ground_truth"]

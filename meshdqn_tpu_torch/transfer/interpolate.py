@@ -15,9 +15,15 @@ f64.  Target points are padded to static budgets (the source's sizes), so no
 tensor's shape depends on the episode.
 
 This is plain torch: the JAX package runs it as XLA, with no Pallas kernel.
-Each removal moves one packed f64 buffer to the device and reads back one
-small f32 vector (`_step_products`); a window shift reads back one
-(`_gather_window`).
+The device passes take a leading batch axis: the env's own step is a batch
+of one, the trainer runs a sweep's removals and window shifts as one batch
+each (`run_products_batched_*`, `gather_window_batched_*`).  A batch's
+inputs cross as one packed buffer (f64 for the env's step; f32 on the
+trainer's wire, cast to f64 on the device, as the JAX package ships them),
+all its points are located in one sweep (`_step_products`), and its small
+f32 results come back in one readback.  Each row's result is independent
+of the others, so only the real rows run (the JAX package pads the batch to
+a few static sizes for its compiler).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from ..fem.assembly import cell_jacobians
 from ..fem.spaces import P1Space, P2Space
 from ..mesh import TriMesh
+from ..utils.hostio import Readback, upload
 
 F64 = torch.float64
 
@@ -116,52 +123,52 @@ def eval_p1(src: SourceField, p: torch.Tensor, points: torch.Tensor):
 
 
 def _eval_all(src: SourceField, u_all, p_all, pts):
-    """S vector-P2 and S P1 fields at shared points.
+    """S vector-P2 and S P1 fields at each of B targets' points.
 
-    u_all: (S, 2Ns), p_all: (S, Np), pts: (P, 2).
-    Returns (S, P, 2) velocities and (S, P) pressures, f64."""
-    cells, xi = locate(src, pts)
-    phi2 = _p2_basis(xi)  # (P, 6)
+    u_all: (S, 2Ns), p_all: (S, Np), pts: (B, P, 2); one locate sweep over
+    all B*P points.  Returns (B, S, P, 2) velocities and (B, S, P)
+    pressures, f64."""
+    B, P = pts.shape[:2]
+    cells, xi = locate(src, pts.reshape(B * P, 2))
+    cells, xi = cells.view(B, P), xi.view(B, P, 2)
+    phi2 = _p2_basis(xi)  # (B, P, 6)
     dofs2 = src.cell_dofs_p2[cells]
-    ux = (phi2 * u_all[:, dofs2]).sum(-1)
+    ux = (phi2 * u_all[:, dofs2]).sum(-1)  # (S, B, P)
     uy = (phi2 * u_all[:, src.ns + dofs2]).sum(-1)
-    phi1 = _p1_basis(xi)
-    pv = (phi1 * p_all[:, src.cell_dofs_p1[cells]]).sum(-1)
-    return torch.stack([ux, uy], dim=-1), pv
-
-
-def _step_products(src: SourceField, u_all, p_all, pts, probe_u, probe_p, widx):
-    """The env's device pass per mesh change: interpolate all S snapshots
-    onto the padded target dof points, integrate the (padded) drag/lift
-    functionals, gather the observation window's vertex features and a
-    finiteness flag.
-
-    probe_u: (2, 2, P) [drag, lift][x, y] zero-padded velocity functionals;
-    probe_p: (2, P); widx: (W,) window vertex indices (the vertices are the
-    first points of `pts`).
-
-    Returns (uv (S, P, 2), pv (S, P), small), small packing [finite,
-    drags (S,), lifts (S,), vel_w (S, W, 2), p_w (S, W)] as one f32 vector,
-    as the JAX package packs it for one host readback."""
-    uv, pv = _eval_all(src, u_all, p_all, pts)
-    finite = torch.isfinite(uv).all() & torch.isfinite(pv).all()
-    forces = (torch.einsum("spc,fcp->fs", uv, probe_u)
-              + torch.einsum("sp,fp->fs", pv, probe_p))  # (2, S)
-    vel_w = uv[:, widx]  # (S, W, 2)
-    p_w = pv[:, widx]
-    small = torch.cat([
-        finite.float()[None],
-        forces.reshape(-1).float(),
-        vel_w.reshape(-1).float(),
-        p_w.reshape(-1).float(),
-    ])
-    return uv, pv, small
+    pv = (_p1_basis(xi) * p_all[:, src.cell_dofs_p1[cells]]).sum(-1)
+    uv = torch.stack([ux, uy], dim=-1).transpose(0, 1).contiguous()
+    return uv, pv.transpose(0, 1).contiguous()
 
 
 def _gather_window(uv, pv, widx):
-    """Window features from device-resident interpolants (the do-nothing
-    step: the mesh, hence the interpolation, is unchanged)."""
-    return torch.cat([uv[:, widx].reshape(-1).float(), pv[:, widx].reshape(-1).float()])
+    """Window features of B targets' interpolants, uv (B, S, P, 2) and pv
+    (B, S, P), at widx (B, W): (B, S*W*2 + S*W) f32, velocities first."""
+    (B, S), W = uv.shape[:2], widx.shape[1]
+    vel_w = torch.gather(uv, 2, widx[:, None, :, None].expand(B, S, W, 2))
+    p_w = torch.gather(pv, 2, widx[:, None, :].expand(B, S, W))
+    return torch.cat([vel_w.reshape(B, -1).float(), p_w.reshape(B, -1).float()], dim=1)
+
+
+def _step_products(src: SourceField, u_all, p_all, pts, probe_u, probe_p, widx):
+    """The env's device pass per mesh change, for B targets at once:
+    interpolate all S snapshots onto each target's padded dof points,
+    integrate the (padded) drag/lift functionals, gather the observation
+    window's vertex features and a finiteness flag.
+
+    pts: (B, P, 2); probe_u: (B, 2, 2, P) [drag, lift][x, y] zero-padded
+    velocity functionals; probe_p: (B, 2, P); widx: (B, W) window vertex
+    indices (the vertices are the first points of `pts`).
+
+    Returns (uv (B, S, P, 2), pv (B, S, P), small (B, L)), each row of small
+    packing [finite, drags (S,), lifts (S,), vel_w (S, W, 2), p_w (S, W)] in
+    f32, as the JAX package packs it for one host readback."""
+    uv, pv = _eval_all(src, u_all, p_all, pts)
+    B = uv.shape[0]
+    finite = torch.isfinite(uv).flatten(1).all(1) & torch.isfinite(pv).flatten(1).all(1)
+    forces = (torch.einsum("bspc,bfcp->bfs", uv, probe_u)
+              + torch.einsum("bsp,bfp->bfs", pv, probe_p))  # (B, 2, S)
+    return uv, pv, torch.cat([finite.float()[:, None], forces.reshape(B, -1).float(),
+                              _gather_window(uv, pv, widx)], dim=1)
 
 
 # ----------------------------------------------------------------------
@@ -199,9 +206,6 @@ class SnapshotTransfer:
         self._budget1 = source_mesh.num_vertices
         self.window_budget = window_budget
 
-    def _to_device(self, a: np.ndarray, dtype=F64) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype).to(self.device)
-
     def to_mesh(self, target: TriMesh) -> SnapshotSet:
         """Interpolate all snapshots onto `target`'s P2/P1 dofs: one locate
         over the padded P2 points serves velocity and pressure (the P1 dof
@@ -213,8 +217,8 @@ class SnapshotTransfer:
             padded = np.zeros((self._budget2, 2))
             padded[:n2] = pts
             pts = padded
-        uv, pv = _eval_all(self.src, self.u_src, self.p_src, self._to_device(pts))
-        uv = uv[:, :n2].cpu().numpy()
+        uv, pv = _eval_all(self.src, self.u_src, self.p_src, upload(pts, self.device)[None])
+        uv, pv = uv[0, :, :n2].cpu().numpy(), pv[0]
         return SnapshotSet(u=np.concatenate([uv[..., 0], uv[..., 1]], axis=1),
                            p=pv[:, :n1].cpu().numpy())
 
@@ -260,33 +264,77 @@ class SnapshotTransfer:
                                                                lprobe))
 
     def step_products_from_inputs(self, inp: dict):
-        """The device pass from prepared step_inputs: the f64 inputs cross as
-        one packed buffer, the result comes back as one f32 vector."""
-        P = len(inp["pts"])
-        packed = self._to_device(np.concatenate([
-            inp["pts"].ravel(), inp["probe_u"].ravel(), inp["probe_p"].ravel(),
-            inp["widx"].astype(np.float64)]))
-        pts = packed[: 2 * P].view(P, 2)
-        probe_u = packed[2 * P : 6 * P].view(2, 2, P)
-        probe_p = packed[6 * P : 8 * P].view(2, P)
-        widx = packed[8 * P :].long()
+        """The device pass of one env from prepared step_inputs, its f64
+        inputs shipped as they are (a batch of one, see
+        run_products_batched_begin)."""
+        return self.run_products_batched_finish(self.run_products_batched_begin([inp]))[0]
+
+    def run_products_batched_begin(self, inputs: list[dict], wire: str = "f64"):
+        """Enqueue many envs' device passes as one batched pass, and the
+        copy of its results to the host; return a handle for
+        `run_products_batched_finish`, which waits.
+
+        The inputs cross as one packed buffer.  wire='f32' ships them
+        rounded to f32 (points, probe functionals; the window indices are
+        exact) and casts them to f64 on the device, as the JAX package's
+        trainer ships them; 'f64' (the env's own step) ships them as they
+        are."""
+        if wire not in ("f32", "f64"):
+            raise ValueError(f"wire must be 'f32' or 'f64', not {wire!r}")
+        B, P = len(inputs), len(inputs[0]["pts"])
+        dt = np.float32 if wire == "f32" else np.float64
+        host = np.concatenate(
+            [np.stack([i[key] for i in inputs]).reshape(B, -1).astype(dt)
+             for key in ("pts", "probe_u", "probe_p", "widx")], axis=1)
+        dev = upload(host, self.device).to(F64)
+        pts = dev[:, : 2 * P].view(B, P, 2)
+        probe_u = dev[:, 2 * P : 6 * P].view(B, 2, 2, P)
+        probe_p = dev[:, 6 * P : 8 * P].view(B, 2, P)
+        widx = dev[:, 8 * P :].long()
         uv, pv, small = _step_products(self.src, self.u_src, self.p_src, pts,
                                        probe_u, probe_p, widx)
-        parsed = self._parse_small(small.cpu().numpy(), inp["k"])
-        return (uv, pv, inp["n1"], inp["n2"]), *parsed
+        return uv, pv, Readback(small), list(inputs)
+
+    def run_products_batched_finish(self, handle):
+        """The readback half of run_products_batched_begin: a list of
+        (dev_snaps, finite, drags, lifts, vel_w, p_w) in input order, as
+        step_products returns them."""
+        uv, pv, small, inputs = handle
+        smalls = small.numpy()
+        return [((uv[b], pv[b], inp["n1"], inp["n2"]), *self._parse_small(smalls[b], inp["k"]))
+                for b, inp in enumerate(inputs)]
 
     def gather_window(self, dev_snaps, window: np.ndarray):
-        """Window features from device-resident interpolants."""
-        uv, pv, _, _ = dev_snaps
-        W = self.window_budget
-        k = len(window)
-        widx = np.zeros(W, dtype=np.int64)
-        widx[:k] = window
-        S = len(self.u_src)
-        small = _gather_window(uv, pv, self._to_device(widx, torch.int64)).cpu().numpy()
-        vel_w = small[: S * W * 2].reshape(S, W, 2)[:, :k]
-        p_w = small[S * W * 2 :].reshape(S, W)[:, :k]
-        return vel_w, p_w
+        """Window features from device-resident interpolants (the do-nothing
+        step: the mesh, hence the interpolation, is unchanged)."""
+        return self.gather_window_batched_finish(
+            self.gather_window_batched_begin([(dev_snaps, window)]))[0]
+
+    def gather_window_batched_begin(self, items: list[tuple]):
+        """Enqueue the window gather of many envs' device-resident
+        interpolants, items = [(dev_snaps, window), ...], and the copy of
+        its result to the host; return a handle for
+        `gather_window_batched_finish`."""
+        B, W = len(items), self.window_budget
+        uv = torch.stack([d[0] for d, _ in items])  # (B, S, P, 2)
+        pv = torch.stack([d[1] for d, _ in items])
+        widx = np.zeros((B, W), dtype=np.int64)
+        for b, (_, window) in enumerate(items):
+            widx[b, : len(window)] = window
+        return Readback(_gather_window(uv, pv, upload(widx, self.device))), list(items)
+
+    def gather_window_batched_finish(self, handle):
+        """The readback half of gather_window_batched_begin: [(vel_w, p_w),
+        ...] in item order."""
+        small, items = handle
+        smalls = small.numpy()
+        S, W = len(self.u_src), self.window_budget
+        out = []
+        for b, (_, window) in enumerate(items):
+            k = len(window)
+            out.append((smalls[b, : S * W * 2].reshape(S, W, 2)[:, :k],
+                        smalls[b, S * W * 2 :].reshape(S, W)[:, :k]))
+        return out
 
     def materialize(self, dev_snaps) -> SnapshotSet:
         """Device-resident interpolants as an unpadded SnapshotSet."""

@@ -5,6 +5,7 @@ from .config import (
     FlowConfig,
     OptimizerConfig,
 )
+from .jsonlog import JsonLogger, read_jsonl
 from .profiling import device_busy
 
 __all__ = [
@@ -12,6 +13,8 @@ __all__ = [
     "Config",
     "EpsilonConfig",
     "FlowConfig",
+    "JsonLogger",
     "OptimizerConfig",
     "device_busy",
+    "read_jsonl",
 ]

@@ -123,6 +123,10 @@ class Config:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def to_yaml(self, path: str) -> None:
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f)
+
     def apply_overrides(self, overrides: list[str]) -> "Config":
         """Apply `section.key=value` strings (e.g. 'optimizer.lr=3e-4')."""
         for item in overrides:

@@ -306,12 +306,15 @@ print(sorted(n for n in sys.modules if n.split(".")[0] in ("h5py", "jax", "meshd
 print(sorted(n for n in sys.modules if n.startswith("meshdqn_tpu_torch.")))
 """
 
-# The deployment path's modules, which the walk above must have imported.
+# The deployment and training paths' modules, which the walk above must
+# have imported.
 DEPLOY_MODULES = ["cli.deploy", "coarsen.cavity", "coarsen.remove", "convert",
                   "deploy.deployer", "env.airfoil_env", "env.graph", "mesh.smooth",
                   "models.layers", "models.noderemoval", "native", "rl.dqn",
                   "train.gtcache", "transfer.interpolate", "utils.config",
                   "utils.profiling"]
+TRAIN_MODULES = ["cli.train", "rl", "rl.replay", "train", "train.checkpoint",
+                 "train.metrics", "train.trainer", "utils.hostio", "utils.jsonlog"]
 
 
 def test_package_imports_neither_h5py_nor_jax():
@@ -319,4 +322,5 @@ def test_package_imports_neither_h5py_nor_jax():
                          capture_output=True, text=True, check=True, timeout=120)
     foreign, imported = out.stdout.strip().splitlines()
     assert foreign == "[]"
-    assert {f"meshdqn_tpu_torch.{m}" for m in DEPLOY_MODULES} <= set(ast.literal_eval(imported))
+    assert {f"meshdqn_tpu_torch.{m}" for m in DEPLOY_MODULES + TRAIN_MODULES} <= set(
+        ast.literal_eval(imported))

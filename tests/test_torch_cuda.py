@@ -746,3 +746,34 @@ def test_run_sim_fused_on_card_against_torch_matmul(cuda):
     for got, ref in ((d, ref_d), (l, ref_l)):
         for a, b in zip(got, ref):
             assert abs(a / b - 1) < 1e-3
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_against_jax_fixture(cuda):
+    """Four gradient steps from the converted ys930 checkpoint on the
+    fixture's pool, on the card: f64 equal to the JAX package's f64 steps to
+    f64 rounding, the f32 steps within 2x of the JAX f32 steps' deviation
+    (chip_smoke.train_steps_vs_fixture raises otherwise)."""
+    cs = _chip_smoke()
+    cs.train_steps_vs_fixture(cuda, *cs.train_fixture())
+
+
+@pytest.mark.cuda
+def test_batched_forward_on_card_against_cpu(cuda):
+    """The Q-network's batched forward on the card over the fixture's 64
+    states: held to the card's f64 evaluation within 2x of the per-graph
+    forward's deviation (chip_smoke.batched_forward_vs_single raises
+    otherwise), and the same argmax as the CPU's batch."""
+    cs = _chip_smoke()
+    assert cs.batched_forward_vs_single(cuda, *cs.train_fixture())["argmax_equal_cpu"]
