@@ -21,6 +21,12 @@ The paths, each driven through IPCSSolver, the entry point a user calls:
   mesh of each airfoil (meshdqn_tpu_torch/data/*.npz), every sparse product
   through the banded kernel (csrc/banded.cu) or the ELL kernel
   (csrc/ell.cu);
+* the ensemble (solver.ensemble.EnsembleFlows): 16 inflow amplitudes on
+  the ys930 pack mesh, 5000 steps, each step seven launches of the matvec
+  kernel's k-column form (16 columns, F3s 32);
+* the batched flows (solver.batch.BatchedFlows, scripts/make_sweep.py's
+  sweep): the ys930 pack mesh and four decimations of it, 5000 steps, each
+  step three launches of the grouped form's batched instance;
 * greedy deployment (deploy.Deployer and cli.deploy's main, the entry a
   user calls): the trained Q-network of each pack coarsening its mesh on
   the card, every removal's interpolated drag and lift computed on the
@@ -60,7 +66,11 @@ The kernels are built from source at first use.  Phases, one JSON line each
              split form ('df32'), per pack and launch, on the production
              limbs and on a synthetic low limb as large as the high one
              (dropping the low limbs must fail the check there), with zero
-             low limbs equal to the f32 grouped launch.  Sparse rows also
+             low limbs equal to the f32 grouped launch.  Its k-column form
+             (matvec_cols) at the ensemble step's ys930 shapes at 16 members
+             (F3s at 32 and 16 columns), F1u at 40 columns (two launches)
+             and ah93w145's F1u at 16: every column also bit-equal to a
+             k = 1 launch; library call torch.matmul.  Sparse rows also
              hold the gap over the rows that are not identity (Dirichlet)
              rows; the ELL kernel also at the unfused step's operators on
              both packs, f32 and f64
@@ -92,6 +102,27 @@ The kernels are built from source at first use.  Phases, one JSON line each
   cg_diag    only with --diag, printed only: the production config in f64
              (banded f64 blocks), 5000 steps, and in the ELL layout in f32,
              500 steps
+  ensemble   EnsembleFlows, ys930, amplitudes linspace(0.4, 1.3, 16), 5000
+             steps from rest with the counters zeroed (7 k-column launches
+             a step, asserted): member 1.0 (index 10, exactly 1.0 in f32)
+             bit-equal to the solo fused f32 solve at every 1000-step
+             snapshot, its drag and lift within 1e-6 of the solo's and its
+             final ones within 1e-3 of the pack; every member finite; drag
+             and lift by amplitude, ms/step, per-member ms/step against the
+             solo solve's, then 50 profiled steps (device busy)
+  batched    BatchedFlows, the ys930 pack mesh (not smoothed again) and its
+             decimations to 850, 820, 790 and 760 vertices (seed = target,
+             smoothed 50 passes, as scripts/make_sweep.py), 5000 steps from
+             rest with the counters zeroed (3 batched launches a step,
+             asserted): the base member's state bit-equal to its solo solve,
+             each member's final drag within 1e-3 of its solo solve's (lift
+             printed), the padding exactly zero; set-up s, ms/step and
+             per-flow ms/step, 50 profiled steps; then the batched form's
+             kernel rows (matvec_group_batched: seeded operands at the
+             stacked sizes, bit-equal to the members' grouped launches,
+             gap and controls against the per-member plain versions, timed
+             beside them) and one step of the sweep's own operators
+             bit-equal to the members' grouped launches
   deploy     greedy: per pack, the port's Deployer (complete_traj=False)
              until the episode ends, counters zeroed: actions, vertex counts
              and terminal reason equal to the JAX package's rollout
@@ -210,6 +241,18 @@ def time_ms(fn, flush, reps=25):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def bound_of(nbytes, flops, mem_peak, flop_peak):
+    """The least time for the bytes and operations given: the larger of
+    bytes over the memory rate and operations over the peak rate, in ms,
+    and which of the two bounds it (None without the card's peaks)."""
+    t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
+    t_ops = flops / flop_peak * 1e3 if flop_peak else None
+    if t_bytes is None:
+        return {"bound_ms": None, "bound_by": None}
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def pack_shapes(ns: int, npr: int):
     """The fused step's seven dense applies: (operator, R, N, k)."""
     n1 = 2 * ns
@@ -284,8 +327,6 @@ def check_kernels(cuda, meshes, mem_peak, flop_peak, flush):
                     nx = 2 if dual else 1
                     nbytes = 4 * (R * N + nx * N * k + R * k)
                     flops = 2 * R * N * k * nx
-                    t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
-                    t_ops = flops / flop_peak * 1e3 if flop_peak else None
                     row = {
                         "phase": "kernels", "kernel": kname, "R": R, "N": N, "k": k,
                         "rel_gap": gap, "tol": tol, **controls,
@@ -293,9 +334,7 @@ def check_kernels(cuda, meshes, mem_peak, flop_peak, flush):
                         "kernel_ms": time_ms(lambda: kernel(M, X, lo), flush),
                         "plain_ms": time_ms(lambda: plain(M, X, lo), flush),
                         "library_ms": time_ms(lambda: library(M, X, lo, X2), flush),
-                        "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
-                        "bound_by": None if t_bytes is None else
-                        ("bytes" if t_bytes >= t_ops else "operations"),
+                        **bound_of(nbytes, flops, mem_peak, flop_peak),
                     }
                     if row["bound_ms"]:
                         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
@@ -394,8 +433,6 @@ def check_grouped(cuda, meshes, mem_peak, flop_peak, flush, single_rows):
             # Each operand read once, each output written once.
             nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in y))
             flops = sum(2 * R * N * k for R, N, k in shapes)
-            t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
-            t_ops = flops / flop_peak * 1e3 if flop_peak else None
             row = {
                 "phase": "kernels", "kernel": "matvec_group", "form": form, "pack": pack,
                 "products": shapes, "rel_gap": gap, "tol": tol, **controls,
@@ -406,9 +443,7 @@ def check_grouped(cuda, meshes, mem_peak, flop_peak, flush, single_rows):
                 "singles_ms": sum(single_rows[s]["kernel_ms"] for s in shapes),
                 "plain_ms": time_ms(lambda: plain(*args), flush),
                 "library_ms": None,
-                "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
-                "bound_by": None if t_bytes is None else
-                ("bytes" if t_bytes >= t_ops else "operations"),
+                **bound_of(nbytes, flops, mem_peak, flop_peak),
             }
             if row["bound_ms"]:
                 row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
@@ -581,7 +616,8 @@ def profile_steps(solver, state, path, n=50):
     top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
     # The port's own kernels, each summed over its template instances.
     ours = {k: sum(v for name, v in by_name.items() if k in name) / n
-            for k in ("group_kernel", "banded_tiles_kernel", "ell_kernel")}
+            for k in ("group_kernel", "group_batched_kernel", "cols_kernel",
+                      "banded_tiles_kernel", "ell_kernel")}
     # device_busy_share is measured in the profiled window, where the
     # profiler also slows the host; busy over the unprofiled wall time of
     # the same steps, just before, is an estimate across two windows.
@@ -595,6 +631,343 @@ def profile_steps(solver, state, path, n=50):
           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
           "port_kernels_ms_per_step": ours,
           "top_ms_per_step": {k: v / n for k, v in top}})
+
+
+# ---------------------------------------------------------------------------
+# The batched and ensemble flows: the matvec kernel's k-column form and the
+# grouped form's batched instance
+# ---------------------------------------------------------------------------
+
+# The ensemble's amplitudes (scripts/reynolds_ensemble.py's default): member
+# ENS_ONE is exactly 1.0 in f32, the solo solve's inflow.
+ENS_AMPS = np.linspace(0.4, 1.3, 16)
+ENS_ONE = 10
+ENS_REL = 1e-6  # member 1.0's drag/lift against the solo solve's
+# The sweep's decimation targets (scripts/make_sweep.py's default).
+SWEEP_TARGETS = (850, 820, 790, 760)
+BATCHED = ("step_ustar_batched", "step_pressure_batched", "step_velocity_batched")
+
+
+def cols_shapes(ns: int, npr: int, k: int = len(ENS_AMPS)):
+    """The ensemble step's seven products at k members: (operator, R, N,
+    columns); F3s takes the (Ns, 2k) stack of both velocity components."""
+    n1 = 2 * ns
+    return [("F1u", n1, n1, k), ("A1Z", n1, n1, k), ("F1p", n1, npr, k),
+            ("F3p", n1, npr, k), ("F2u", npr, n1, k), ("F2p", npr, npr, k),
+            ("F3s", ns, ns, 2 * k)]
+
+
+def check_cols(cuda, meshes, mem_peak, flop_peak, flush):
+    """The matvec kernel's k-column form at the ensemble step's seven ys930
+    shapes at 16 members (F3s at 32 columns, and at 16), F1u at 40 columns
+    (two launches) and ah93w145's F1u at 16: against the plain version
+    (gap_tolerance of N, TF32 and bf16 controls outside it), every column
+    bit-equal to a k = 1 launch, repeated bits; timed beside the bound, the
+    plain version and torch.matmul (TF32 off).  Returns the summary over one
+    ys930 ensemble step."""
+    from meshdqn_tpu_torch.ops import matvec as mv
+
+    ys, ah = meshes[PACKS[0]], meshes[PACKS[1]]
+    ns, npr = ys.num_vertices + ys.num_edges, ys.num_vertices
+    ans = ah.num_vertices + ah.num_edges
+    step = cols_shapes(ns, npr)
+    shapes = ([(PACKS[0], True, *sh) for sh in step]
+              + [(PACKS[0], False, "F3s", ns, ns, len(ENS_AMPS)),
+                 (PACKS[0], False, "F1u", 2 * ns, 2 * ns, 40),
+                 (PACKS[1], False, "F1u", 2 * ans, 2 * ans, len(ENS_AMPS))])
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    worst, by_bytes, seen = 0.0, True, {}
+    for pack, in_step, op, R, N, k in shapes:
+        key = (R, N, k)
+        if key not in seen:
+            g = torch.Generator(device=cuda).manual_seed(R * 131 + N * 7 + k)
+            M = torch.randn(R, N, device=cuda, generator=g)
+            X = torch.randn(N, k, device=cuda, generator=g)
+            before = mv.matvec.launches
+            y = mv.matvec(M, X)
+            launches = mv.matvec.launches - before
+            torch.cuda.synchronize()
+            if not torch.equal(y, mv.matvec(M, X)):
+                raise AssertionError(f"matvec_cols {key}: bits differ between runs")
+            ones = torch.stack([mv.matvec(M, X[:, j].contiguous()) for j in range(k)], 1)
+            if not torch.equal(y, ones):
+                raise AssertionError(f"matvec_cols {key}: a column differs from its "
+                                     "k = 1 launch")
+            yp = mv.matvec_reference(M, X)
+            tol = mv.gap_tolerance(N)
+            gap = mv.relative_gap(y, yp)
+            if not gap <= tol:
+                raise AssertionError(f"matvec_cols {key}: ||y - plain|| / ||plain|| = "
+                                     f"{gap:.3g} above {tol:.3g}")
+            controls = {
+                f"control_{name}_gap": mv.relative_gap(mv.matvec_reference(
+                    mv.round_mantissa(M, bits), mv.round_mantissa(X, bits)), yp)
+                for name, bits in (("tf32", 10), ("bf16", 7))
+            }
+            if not min(controls.values()) > tol:
+                raise AssertionError(f"matvec_cols {key}: a control passes the check: "
+                                     f"{controls}")
+            row = {
+                "phase": "kernels", "kernel": "matvec_cols", "pack": pack, "op": op,
+                "R": R, "N": N, "k": k, "launches_per_call": launches,
+                "window": mv.column_window(N, min(k, mv.COLS_MAX)),
+                "rel_gap": gap, "tol": tol, **controls, "bits_equal_k1_launches": True,
+                "max_abs_err": (y - yp).abs().max().item(),
+                "kernel_ms": time_ms(lambda: mv.matvec(M, X), flush),
+                "plain_ms": time_ms(lambda: mv.matvec_reference(M, X), flush),
+                "library_ms": time_ms(lambda: torch.matmul(M, X), flush),
+                **bound_of(4 * (R * N + N * k + R * k), 2 * R * N * k, mem_peak,
+                           flop_peak),
+            }
+            if row["bound_ms"]:
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+            emit(row)
+            seen[key] = row
+            worst = max(worst, row["max_abs_err"])
+            del M, X, y, ones, yp
+        if in_step:
+            row = seen[key]
+            for k_ in ("plain_ms", "library_ms"):
+                tot[k_] += row[k_]
+            tot["ms"] += row["kernel_ms"]
+            if row["bound_ms"] is None:
+                tot["bound_ms"] = None
+            elif tot["bound_ms"] is not None:
+                tot["bound_ms"] += row["bound_ms"]
+                by_bytes &= row["bound_by"] == "bytes"
+    return dict(tot, max_abs_err=worst,
+                bound_by=("bytes" if by_bytes else "operations")
+                if tot["bound_ms"] is not None else None)
+
+
+def check_batched_kernel(cuda, ns, npr, B, mem_peak, flop_peak, flush):
+    """The grouped form's batched instance at the sweep's stacked sizes (B
+    members of Ns, Np), seeded operands: each form's one launch bit-equal to
+    B grouped launches on the members' slices and repeated, within
+    gap_tolerance of the per-member plain versions (TF32 and bf16 controls
+    outside it); timed beside the bound, the B grouped launches and the
+    plain versions.  Returns the summary over one batched step."""
+    from meshdqn_tpu_torch.ops import matvec as mv
+
+    nu = 2 * ns
+    g = torch.Generator(device=cuda).manual_seed(ns * 7 + npr + B)
+    r = lambda *shape: torch.randn(B, *shape, device=cuda, generator=g)
+    t = {"F1u": r(nu, nu), "F1p": r(nu, npr), "A1Z": r(nu, nu), "k1": r(nu),
+         "rho": r(), "F2p": r(npr, npr), "F2u": r(npr, nu), "k2": r(npr),
+         "F3s": r(ns, ns), "F3p": r(2, ns, npr), "k3": r(nu),
+         "u": r(nu), "p": r(npr), "c": r(nu), "u_star": r(nu), "dp": r(npr)}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+           "composed_ms": 0.0}
+    worst = 0.0
+    flat = lambda ys: torch.cat([y.flatten() for y in ys])
+    as_tuple = lambda y: y if isinstance(y, tuple) else (y,)
+    for form, grouped, plain, names, shapes, terms in grouped_forms(mv, ns, npr):
+        args = [t[n] for n in names]
+        y = as_tuple(grouped(*args))
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, y, as_tuple(grouped(*args)))):
+            raise AssertionError(f"matvec_group_batched {form}: bits differ between runs")
+        if not all(map(torch.equal, y, as_tuple(mv.per_member(grouped, *args)))):
+            raise AssertionError(f"matvec_group_batched {form}: not bit-equal to "
+                                 "grouped launches on the members' slices")
+        yp = flat(as_tuple(mv.per_member(plain, *args)))
+        tol = mv.gap_tolerance(terms)
+        gap = mv.relative_gap(flat(y), yp)
+        if not gap <= tol:
+            raise AssertionError(f"matvec_group_batched {form}: ||y - plain|| / ||plain|| "
+                                 f"= {gap:.3g} above {tol:.3g}")
+        controls = {
+            f"control_{name}_gap": mv.relative_gap(flat(as_tuple(mv.per_member(
+                plain, *(mv.round_mantissa(a, bits) for a in args)))), yp)
+            for name, bits in (("tf32", 10), ("bf16", 7))
+        }
+        if not min(controls.values()) > tol:
+            raise AssertionError(f"matvec_group_batched {form}: a control passes the "
+                                 f"check: {controls}")
+        nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in y))
+        flops = B * sum(2 * R * N * k for R, N, k in shapes)
+        row = {
+            "phase": "kernels", "kernel": "matvec_group_batched", "form": form,
+            "members": B, "products": shapes, "rel_gap": gap, "tol": tol, **controls,
+            "bits_equal_member_launches": True,
+            "max_abs_err": (flat(y) - yp).abs().max().item(),
+            "kernel_ms": time_ms(lambda: grouped(*args), flush),
+            "composed_ms": time_ms(lambda: mv.per_member(grouped, *args), flush),
+            "plain_ms": time_ms(lambda: mv.per_member(plain, *args), flush),
+            "library_ms": None, **bound_of(nbytes, flops, mem_peak, flop_peak),
+        }
+        if row["bound_ms"]:
+            row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        emit(row)
+        worst = max(worst, row["max_abs_err"])
+        for k in ("ms", "plain_ms", "composed_ms", "bound_ms"):
+            v = row["kernel_ms" if k == "ms" else k]
+            tot[k] = None if tot[k] is None or v is None else tot[k] + v
+    del t
+    return dict(tot, max_abs_err=worst,
+                bound_by="bytes" if tot["bound_ms"] is not None else None)
+
+
+def ensemble_phase(cuda, mesh, z, meta, solo_ms):
+    """EnsembleFlows on the ys930 pack mesh, ENS_AMPS, 5000 steps from rest
+    with the counters zeroed (7 k-column launches a step, asserted): member
+    1.0's state bit-equal to the solo fused f32 solve at every snapshot, its
+    drag and lift within ENS_REL of the solo's and its final ones within
+    1e-3 of the pack; every member finite.  Returns the launches."""
+    from meshdqn_tpu_torch.solver import IPCSSolver
+    from meshdqn_tpu_torch.solver.ensemble import EnsembleFlows
+
+    if np.float32(ENS_AMPS[ENS_ONE]) != 1.0:
+        raise AssertionError("the ensemble's reference member is not 1.0 in f32")
+    cfg = pack_config(meta, precision="f32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = EnsembleFlows(mesh, list(ENS_AMPS), cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if ens.solver.device.type != "cuda":
+        raise AssertionError(f"the ensemble landed on {ens.solver.device}")
+    state = ens.initial_state()
+    snaps = []
+    zero_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEPS // SAVE):
+        state, d, l = ens.evolve(state, SAVE)
+        snaps.append((state, d[:, -1], l[:, -1], d, l))
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counters()
+    expect = {**NO_LAUNCHES, "matvec": 7 * STEPS}
+    if launches != expect:
+        raise AssertionError(f"ensemble: launches {launches}, expected {expect}")
+    ms = start.elapsed_time(end) / STEPS
+    if not all(torch.isfinite(t).all() for snap in snaps for t in
+               (snap[0].u, snap[0].p, snap[3], snap[4])):
+        raise AssertionError("ensemble: non-finite values")
+
+    solo = IPCSSolver(mesh, cfg)
+    s = solo.initial_state()
+    d_rel, l_rel = [], []
+    for i, (st, d, l, _, _) in enumerate(snaps):
+        s, sd, sl = solo.evolve(s, SAVE)
+        if not (torch.equal(st.u[:, ENS_ONE], s.u) and torch.equal(st.p[:, ENS_ONE], s.p)):
+            raise AssertionError(f"ensemble: member 1.0 differs from the solo fused "
+                                 f"solve at step {(i + 1) * SAVE}")
+        d_rel.append(abs(d[ENS_ONE].item() / sd[-1].item() - 1))
+        l_rel.append(abs(l[ENS_ONE].item() / sl[-1].item() - 1))
+    final_d = snaps[-1][1].cpu().numpy()
+    final_l = snaps[-1][2].cpu().numpy()
+    pack_err = [float(abs(final_d[ENS_ONE] / z["gt_drag"][-1] - 1)),
+                float(abs(final_l[ENS_ONE] / z["gt_lift"][-1] - 1))]
+    emit({"phase": "ensemble", "pack": PACKS[0], "members": len(ENS_AMPS),
+          "setup_s": setup_s, "ms_per_step": ms,
+          "ms_per_member_step": ms / len(ENS_AMPS),
+          "solo_fused_ms_per_step": solo_ms,
+          "member_share_of_solo": ms / len(ENS_AMPS) / solo_ms,
+          "host_ms_per_step": host_s * 1e3 / STEPS, "launches": launches,
+          "member_one_bit_equal_solo_at_snapshots": True,
+          "member_one_drag_rel_to_solo": d_rel, "member_one_lift_rel_to_solo": l_rel,
+          "member_one_rel_err_to_pack": pack_err,
+          "final_drag_lift_by_amplitude": {f"{a:.2f}": [float(dd), float(ll)]
+                                           for a, dd, ll in zip(ENS_AMPS, final_d,
+                                                                final_l)}})
+    if not (max(d_rel) <= ENS_REL and max(l_rel) <= ENS_REL):
+        raise AssertionError(f"ensemble: member 1.0's drag/lift {max(d_rel):.3g} / "
+                             f"{max(l_rel):.3g} from the solo solve's, above {ENS_REL}")
+    if not max(pack_err) < GATE:
+        raise AssertionError(f"ensemble: member 1.0's final drag/lift {pack_err} from "
+                             f"the pack, above {GATE}")
+    profile_steps(ens, state, path="ensemble")
+    return launches
+
+
+def batched_phase(cuda, mesh, meta, pk, flush):
+    """BatchedFlows on the ys930 pack mesh and its decimations to
+    SWEEP_TARGETS (seed = target, smoothed 50 passes, as
+    scripts/make_sweep.py), 5000 steps from rest with the counters zeroed
+    (3 batched launches a step, asserted): the base member's state bit-equal
+    to its solo fused f32 solve, each decimated member's final drag within
+    1e-3 of its own solo solve's, the padding exactly zero.  Then the
+    batched form's kernel check at the stacked sizes, and one step's three
+    launches on the sweep's operators bit-equal to the members' grouped
+    launches.  Returns (launches, kernel summary)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from torch_make_sweep import decimate
+
+    from meshdqn_tpu_torch.mesh import smooth
+    from meshdqn_tpu_torch.ops import matvec as mv
+    from meshdqn_tpu_torch.ops.convection import convection_members
+    from meshdqn_tpu_torch.solver.batch import BatchedFlows
+
+    t0 = time.perf_counter()
+    meshes = [mesh] + [smooth(decimate(mesh, t, seed=t), 50) for t in SWEEP_TARGETS]
+    decimate_s = time.perf_counter() - t0
+    cfg = pack_config(meta, precision="f32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf = BatchedFlows(meshes, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out, ms, host_ms, launches = timed_solve(bf, STEPS, SAVE)
+    expect = {**NO_LAUNCHES, **{k: STEPS for k in BATCHED}}
+    if launches != expect:
+        raise AssertionError(f"batched: launches {launches}, expected {expect}")
+    st = out["state"]
+    if not (torch.isfinite(st.u).all() and torch.isfinite(st.p).all()
+            and torch.isfinite(out["drags"]).all() and torch.isfinite(out["lifts"]).all()):
+        raise AssertionError("batched: non-finite values")
+    ns_max = bf.n_u // 2
+    rows = []
+    for i, solver in enumerate(bf.solvers):
+        ns, npr = solver.ndofs_u // 2, solver.ndofs_p
+        pad = torch.cat([st.u[i, ns:ns_max], st.u[i, ns_max + ns:], st.p[i, npr:]])
+        if not torch.all(pad == 0):
+            raise AssertionError(f"batched: member {i}'s padding is not zero")
+        solo = solver.solve(STEPS, save_steps=SAVE)
+        if i == 0 and not (torch.equal(st.u[0], solo["state"].u)
+                           and torch.equal(st.p[0], solo["state"].p)):
+            raise AssertionError("batched: the base member differs from its solo solve")
+        rows.append({"vertices": meshes[i].num_vertices,
+                     "drag": float(out["snap_drags"][i, -1]),
+                     "lift": float(out["snap_lifts"][i, -1]),
+                     "solo_drag": float(solo["snap_drags"][-1]),
+                     "solo_lift": float(solo["snap_lifts"][-1]),
+                     "drag_rel_to_solo": float(abs(out["snap_drags"][i, -1]
+                                                   / solo["snap_drags"][-1] - 1)),
+                     "lift_rel_to_solo": float(abs(out["snap_lifts"][i, -1]
+                                                   / solo["snap_lifts"][-1] - 1))})
+        del solo
+    emit({"phase": "batched", "members": bf.B, "decimate_s": decimate_s,
+          "setup_s": setup_s, "ms_per_step": ms, "ms_per_flow_step": ms / bf.B,
+          "host_ms_per_step": host_ms, "launches": launches,
+          "base_bit_equal_solo": True, "padding_zero": True, "flows": rows})
+    worst = max(r["drag_rel_to_solo"] for r in rows)
+    if not worst < GATE:
+        raise AssertionError(f"batched: a member's final drag {worst:.3g} from its solo "
+                             f"solve, above {GATE}")
+    profile_steps(bf, st, path="batched")
+
+    # One step's three launches on the sweep's own operators.
+    dev = bf.dev
+    c = convection_members(dev.conv, st.u)
+    args = {"ustar": (dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1, st.u, st.p, c)}
+    u_star = mv.step_ustar(*args["ustar"])
+    args["pressure"] = (dev.F2p, dev.F2u, dev.k2, st.p, u_star)
+    _, dp = mv.step_pressure(*args["pressure"])
+    args["velocity"] = (dev.F3s, dev.F3p, dev.k3, u_star, dp)
+    for form, fn in (("ustar", mv.step_ustar), ("pressure", mv.step_pressure),
+                     ("velocity", mv.step_velocity)):
+        y, ym = fn(*args[form]), mv.per_member(fn, *args[form])
+        if not all(map(torch.equal, *(a if isinstance(a, tuple) else (a,)
+                                      for a in (y, ym)))):
+            raise AssertionError(f"batched: the sweep's {form} launch differs from its "
+                                 "members' grouped launches")
+    summary = check_batched_kernel(cuda, ns_max, bf.n_p, bf.B, pk[0], pk[1], flush)
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +1015,9 @@ def grouped_bits(name, solver, state, n=100):
 NO_LAUNCHES = {"matvec": 0, "matvec_dual": 0, "step_ustar": 0, "step_pressure": 0,
                "step_velocity": 0, "step_ustar_df32": 0, "step_pressure_df32": 0,
                "step_velocity_df32": 0, "banded_matmat": 0, "ell_matmat": 0,
-               "banded_plain_calls": 0, "ell_plain_calls": 0}
+               "banded_plain_calls": 0, "ell_plain_calls": 0,
+               "step_ustar_batched": 0, "step_pressure_batched": 0,
+               "step_velocity_batched": 0}
 GROUPED = ("step_ustar", "step_pressure", "step_velocity")
 SPLIT = ("step_ustar_df32", "step_pressure_df32", "step_velocity_df32")
 
@@ -653,6 +1028,8 @@ def zero_counters():
     for fn in (matvec.matvec, matvec.matvec_dual, banded.banded_matmat,
                sparse.ell_matmat, *(getattr(matvec, k) for k in GROUPED + SPLIT)):
         fn.launches = 0
+    for k in GROUPED:
+        getattr(matvec, k).batched_launches = 0
     banded.banded_matmat_reference.calls = 0
     sparse.ell_matmat_reference.calls = 0
 
@@ -666,7 +1043,8 @@ def read_counters():
             "banded_matmat": banded.banded_matmat.launches,
             "ell_matmat": sparse.ell_matmat.launches,
             "banded_plain_calls": banded.banded_matmat_reference.calls,
-            "ell_plain_calls": sparse.ell_matmat_reference.calls}
+            "ell_plain_calls": sparse.ell_matmat_reference.calls,
+            **{f"{k}_batched": getattr(matvec, k).batched_launches for k in GROUPED}}
 
 
 def csr_tensor(A, device, dtype):
@@ -1160,8 +1538,6 @@ def check_split(cuda, packs, mem_peak, flop_peak, flush):
                     nbytes = sum(a.numel() * a.element_size() for a in args) + 4 * y.numel()
                     flops = 4 * sum(getattr(hi, n).numel() * (2 if n == "F3s" else 1)
                                     for n in his if getattr(hi, n).dim() >= 2)
-                    t_bytes = nbytes / mem_peak * 1e3 if mem_peak else None
-                    t_ops = flops / flop_peak * 1e3 if flop_peak else None
                     row.update({
                         "kernel_ms": time_ms(lambda: split(*args), flush),
                         "plain_ms": time_ms(lambda: plain(*args), flush),
@@ -1170,9 +1546,7 @@ def check_split(cuda, packs, mem_peak, flop_peak, flush):
                                                   flush),
                         "library_ms": None,
                         "step_MB": nbytes / 1e6,
-                        "bound_ms": None if t_bytes is None else max(t_bytes, t_ops),
-                        "bound_by": None if t_bytes is None else
-                        ("bytes" if t_bytes >= t_ops else "operations"),
+                        **bound_of(nbytes, flops, mem_peak, flop_peak),
                     })
                     if row["bound_ms"]:
                         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
@@ -1890,6 +2264,8 @@ def main(argv=None) -> int:
     flush = torch.empty(64 * 2**20 // 4, device=cuda)  # > the 50 MB L2
     summary = check_kernels(cuda, {n: p[0] for n, p in packs.items()},
                             pk[0], pk[1], flush)
+    summary["matvec_cols"] = check_cols(cuda, {n: p[0] for n, p in packs.items()},
+                                        pk[0], pk[1], flush)
     summary["matvec_group_df32"] = check_split(cuda, packs, pk[0], pk[1], flush)
     summary.update(check_cg_kernels(cuda, {n: f[0] for n, f in finest.items()},
                                     pk, flush))
@@ -1962,6 +2338,19 @@ def main(argv=None) -> int:
         for name, (mesh, oracle) in finest.items():
             cg_diag(name, mesh, oracle, *cg_rows[name])
 
+    # The ensemble (the k-column form) and the batched flows (the grouped
+    # form's batched instance) on ys930.
+    mesh, z, meta = packs[PACKS[0]]
+    counted = ensemble_phase(cuda, mesh, z, meta, rows[PACKS[0]]["ms_per_step"])
+    launches["matvec_cols"] = counted["matvec"]
+    by_path["matvec_cols"] = {"ensemble": counted["matvec"]}
+    flush = torch.empty(64 * 2**20 // 4, device=cuda)
+    counted, summary["matvec_group_batched"] = batched_phase(cuda, mesh, meta, pk, flush)
+    del flush
+    by_batched_form = {k: counted[k] for k in BATCHED}
+    launches["matvec_group_batched"] = sum(by_batched_form.values())
+    by_path["matvec_group_batched"] = {"batched": launches["matvec_group_batched"]}
+
     # Greedy deployment: both packs' rollouts, the re-simulations on ys930.
     flush = torch.empty(64 * 2**20 // 4, device=cuda)
     counted = deploy_phase(cuda, flush)
@@ -1979,9 +2368,13 @@ def main(argv=None) -> int:
     train_phase(cuda)
 
     src = {"matvec": "matvec", "matvec_dual": "matvec", "matvec_group": "matvec",
-           "matvec_group_df32": "matvec", "banded_matmat": "banded", "ell_matmat": "ell"}
+           "matvec_group_df32": "matvec", "matvec_cols": "matvec",
+           "matvec_group_batched": "matvec", "banded_matmat": "banded",
+           "ell_matmat": "ell"}
     replaces = {"matvec": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_group": "meshdqn_tpu/ops/pallas_kernels.py:124",
+                "matvec_cols": "meshdqn_tpu/ops/pallas_kernels.py:124",
+                "matvec_group_batched": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_group_df32": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134",
                 "banded_matmat": "meshdqn_tpu/ops/pallas_kernels.py:250",
@@ -2001,6 +2394,13 @@ def main(argv=None) -> int:
                                  "limbs widened to f32 beforehand, f32_grouped_ms "
                                  "the f32 grouped launches on the high limbs",
             "matvec_dual": "sums over the seven applies of one ys930 fused step",
+            "matvec_cols": "sums over the seven k-column launches of one ys930 "
+                           "ensemble step at 16 members (F3s at 32 columns); "
+                           "library_ms sums torch.matmul on the same products",
+            "matvec_group_batched": "sums over the three batched launches of one "
+                                    "step of the sweep's five members, on seeded "
+                                    "operands at its stacked sizes; composed_ms "
+                                    "times the same as five grouped launches a form",
             "banded_matmat": "sums over the 18 banded applies of one ys930 finest "
                              "production CG step",
             "ell_matmat": "sums over the 2 ELL applies of one ys930 finest "
@@ -2020,6 +2420,8 @@ def main(argv=None) -> int:
                               "oracle_step", "unfused_steps") if k in s},
          **({"launches_by_form": by_form} if k == "matvec_group" else {}),
          **({"launches_by_form": by_split} if k == "matvec_group_df32" else {}),
+         **({"launches_by_form": by_batched_form} if k == "matvec_group_batched"
+            else {}),
          "note": f"ms, plain_ms, bound_ms and library_ms are {note[k]}"}
         for k, s in summary.items()
     ]})

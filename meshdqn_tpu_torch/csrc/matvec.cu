@@ -22,10 +22,16 @@
 //     and alike for u'[ns+r]; b(x) is x rounded to bf16 (nearest even) and
 //     l1, l2, l3 the f32 low limbs of k1, k2, k3.
 //
-// with k in {1, 2}, all row-major f32, true f32 FMA (no TF32, no tensor
-// cores: a matvec does 2 flops per 4-byte matrix entry, so there is no reuse
-// for them to exploit).  The three step_* forms are the fused IPCS step's
-// seven products and the elementwise work around them in three launches.
+//   matvec_cols_f32:  y = M @ x                 x (N, k), 2 < k <= 32 a launch
+//   step_{ustar,pressure,velocity}_batched_f32: the three f32 step forms for
+//     B members at once, operators (B, R, N) and vectors (B, n): one launch
+//     per form walks (rows, member), each member at its own stride.
+//
+// with matvec_f32's k in {1, 2}, all row-major f32, true f32 FMA (no TF32, no
+// tensor cores: a matvec does 2 flops per 4-byte matrix entry, so there is no
+// reuse for them to exploit).  The three step_* forms are the fused IPCS
+// step's seven products and the elementwise work around them in three
+// launches.
 //
 // Bound: bytes.  Every entry of a matrix is used once, so the least time is
 // its bytes over the device-memory rate; the vectors are a few tens of KB.
@@ -70,6 +76,33 @@
 //     that starts off a 16-byte boundary) read two float4s and take the 4
 //     values at offset h (a compile-time shift): the same values, in the
 //     same order, as scalar reads.
+//
+// The k-column form (matvec_cols_f32) replaces matvec_pallas for k > 2 (the
+// ensemble's products, meshdqn_tpu/solver/ensemble.py, have B or 2B
+// columns).  k = 16 columns of 6644 rows need 425 KB, more than a block's
+// 227 KB, so x is staged in windows: W columns of M (a multiple of 128, from
+// the caller: ops/matvec.py column_window) plus 4, for all k columns at once,
+// each column contiguous and 16-byte aligned; a block walks the windows in
+// order.  Float4 v of a row (columns head + 4v .. + 3) belongs to window
+// 4v / W, whose staged columns cover it at any head offset; the head's
+// columns lie in window 0 and the tail's in a window no earlier than the
+// last float4's, after it.  So each lane keeps the single form's sequence
+// per column (head, float4s l, l + 32, ..., tail, by fmaf, then the xor
+// tree), and every column of y equals a k = 1 launch on that column bit for
+// bit.  A launch holds up to 32 columns in registers (32 accumulators a
+// lane); ops/matvec.py splits a larger k into launches of up to 32 columns,
+// and each launch re-reads M.  Bound: bytes up to k of about 40 columns
+// (66.9 TFLOP/s against 3.35 TB/s), then f32 FMAs.  Each x float4 read from
+// shared memory feeds 4 FMAs, so at k = 16 a block reads 16 bytes of shared
+// memory per matrix byte: the shared-memory bandwidth, not device memory,
+// is what a faster version would have to relieve (two rows a warp sharing
+// each x read, which rows r and r + 4 allow: their heads are equal).
+//
+// The batched grouped form (group_batched_kernel) runs the grouped form's
+// code on member blockIdx.y's operands, each pointer moved by the member's
+// stride where it is used (the launch's parameters stay in their constant
+// bank), so each member's rows are summed and combined exactly as a
+// grouped launch on that member's slices: equal bits.
 //
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 on success).  The caller allocates the outputs and owns
@@ -127,6 +160,12 @@ struct Group {
   const float* rho;
   int R;
   int ns;
+  // The batched form's member strides (elements): member b reads product p's
+  // matrix at M + b * mstride[p], slot s at src + b * sstride[s], and the
+  // epilogue's operands at out0 + b * ostride0 and so on.  Zero otherwise.
+  long long mstride[kMaxProducts];
+  long long sstride[kMaxSlots];
+  long long ostride0, ostride1, istride0, istride1, rstride;
 };
 
 // 16 bytes of a matrix row: read once, evict first.  volatile keeps the
@@ -159,9 +198,10 @@ struct Row {
   int nvec;
 };
 
-__device__ __forceinline__ Row row_of(const Product& p, int r) {
+// moff: the batched form's member offset of the matrix (0 otherwise).
+__device__ __forceinline__ Row row_of(const Product& p, int r, long long moff = 0) {
   Row w;
-  w.m = p.M + static_cast<size_t>(p.row0 + r) * p.N;
+  w.m = p.M + moff + static_cast<size_t>(p.row0 + r) * p.N;
   const int h = static_cast<int>(
       ((16u - (static_cast<uint32_t>(reinterpret_cast<uintptr_t>(w.m)) & 15u)) &
        15u) >> 2);
@@ -270,18 +310,18 @@ __device__ __forceinline__ void slot_offsets(const Group& g, int p, int (&xo)[K]
 
 // Products P.. of the row, each started after the one before it ends.
 template <class E, int D, int P>
-__device__ __forceinline__ void run_rest(const Group& g, int r, int lane,
+__device__ __forceinline__ void run_rest(const Group& g, int b, int r, int lane,
                                          float4 (&m)[D], float* acc) {
   if constexpr (P < E::kProducts) {
     constexpr int K = E::kK[P];
     constexpr int off = E::kOff[P];
-    const Row w = row_of(g.prod[P], r);
+    const Row w = row_of(g.prod[P], r, b * g.mstride[P]);
     float mh = 0.0f, mt = 0.0f;
     start_row<D>(w, lane, mh, mt, m);
     int xo[K];
     slot_offsets<K>(g, P, xo);
     finish_row<K, D>(w, lane, xo, mh, mt, m, acc + off);
-    run_rest<E, D, P + 1>(g, r, lane, m, acc);
+    run_rest<E, D, P + 1>(g, b, r, lane, m, acc);
   }
 }
 
@@ -417,8 +457,26 @@ __device__ __forceinline__ void run_lo(const Group& g, int r, int lane, float* a
 
 // ---------------------------------------------------------------------------
 // Epilogues: pre() loads what store() needs, before the row's products;
-// store() runs on lane 0 with the reduced sums.
+// store() runs on lane 0 with the reduced sums.  They see the launch's (or
+// in the batched form the member's) output and input vectors.
 // ---------------------------------------------------------------------------
+
+struct Epi {
+  float* out0;
+  float* out1;
+  const float* in0;
+  const float* in1;
+  const float* in2;
+  const float* rho;
+  int ns;
+};
+
+// Member b's epilogue vectors (b = 0 outside the batched form).
+__device__ __forceinline__ Epi epi_of(const Group& g, int b) {
+  return {g.out0 + b * g.ostride0, g.out1 + b * g.ostride1, g.in0 + b * g.istride0,
+          g.in1 + b * g.istride1,  g.in2,                   g.rho + b * g.rstride,
+          g.ns};
+}
 
 template <int K>
 struct Plain {
@@ -428,8 +486,8 @@ struct Plain {
   static constexpr int kOff[1] = {0};
   static constexpr int kAcc = K;
   static constexpr int kDepth = K == 1 ? 8 : 4;
-  static __device__ __forceinline__ void pre(const Group&, int, float (&)[kEpi]) {}
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void pre(const Epi&, int, float (&)[kEpi]) {}
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&)[kEpi]) {
 #pragma unroll
     for (int j = 0; j < K; ++j) g.out0[static_cast<size_t>(r) * K + j] = a[j];
@@ -445,8 +503,8 @@ struct Dual {
   static constexpr int kOff[1] = {0};
   static constexpr int kAcc = 2 * K;
   static constexpr int kDepth = 4;
-  static __device__ __forceinline__ void pre(const Group&, int, float (&)[kEpi]) {}
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void pre(const Epi&, int, float (&)[kEpi]) {}
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&)[kEpi]) {
 #pragma unroll
     for (int j = 0; j < K; ++j)
@@ -462,11 +520,11 @@ struct UStar {
   static constexpr int kOff[3] = {0, 1, 2};
   static constexpr int kAcc = 3;
   static constexpr int kDepth = 8;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = *g.rho;
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     g.out0[r] = __fadd_rn(__fsub_rn(__fadd_rn(a[0], a[1]), __fmul_rn(e[1], a[2])), e[0]);
   }
@@ -480,11 +538,11 @@ struct Pressure {
   static constexpr int kOff[2] = {0, 1};
   static constexpr int kAcc = 2;
   static constexpr int kDepth = 8;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = g.in1[r];
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     const float pn = __fadd_rn(__fadd_rn(a[0], a[1]), e[0]);
     g.out0[r] = pn;
@@ -501,11 +559,11 @@ struct Velocity {
   static constexpr int kOff[3] = {0, 2, 3};
   static constexpr int kAcc = 4;
   static constexpr int kDepth = 4;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = g.in0[g.ns + r];
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     g.out0[r] = __fadd_rn(__fadd_rn(a[0], a[2]), e[0]);
     g.out0[g.ns + r] = __fadd_rn(__fadd_rn(a[1], a[3]), e[1]);
@@ -525,12 +583,12 @@ struct UStarSplit {
   static constexpr int kLoOff[3] = {3, 4, 5};
   static constexpr int kAcc = 6;
   static constexpr int kDepth = 8;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = *g.rho;
     e[2] = g.in2[r];
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     const float hi =
         __fadd_rn(__fsub_rn(__fadd_rn(a[0], a[1]), __fmul_rn(e[1], a[2])), e[0]);
@@ -550,12 +608,12 @@ struct PressureSplit {
   static constexpr int kLoOff[2] = {2, 3};
   static constexpr int kAcc = 4;
   static constexpr int kDepth = 8;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = g.in1[r];
     e[2] = g.in2[r];
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     const float hi = __fadd_rn(__fadd_rn(a[0], a[1]), e[0]);
     const float pn = __fadd_rn(hi, __fadd_rn(__fadd_rn(a[2], a[3]), e[2]));
@@ -574,13 +632,13 @@ struct VelocitySplit {
   static constexpr int kLoOff[3] = {4, 6, 7};
   static constexpr int kAcc = 8;
   static constexpr int kDepth = 4;
-  static __device__ __forceinline__ void pre(const Group& g, int r, float (&e)[kEpi]) {
+  static __device__ __forceinline__ void pre(const Epi& g, int r, float (&e)[kEpi]) {
     e[0] = g.in0[r];
     e[1] = g.in0[g.ns + r];
     e[2] = g.in2[r];
     e[3] = g.in2[g.ns + r];
   }
-  static __device__ __forceinline__ void store(const float* a, const Group& g, int r,
+  static __device__ __forceinline__ void store(const float* a, const Epi& g, int r,
                                                const float (&e)[kEpi]) {
     const float x = __fadd_rn(__fadd_rn(a[0], a[2]), __fadd_rn(a[4], a[6]));
     const float y = __fadd_rn(__fadd_rn(a[1], a[3]), __fadd_rn(a[5], a[7]));
@@ -589,10 +647,11 @@ struct VelocitySplit {
   }
 };
 
-// Launched with kThreads threads a block and g.smem_bytes of dynamic shared
-// memory; warp w of block b takes row b * kWarps + w.
+// The rows of one launch: with kThreads threads a block and g.smem_bytes of
+// dynamic shared memory, warp w of block x takes row x * kWarps + w; b is
+// the member of the batched form (0 otherwise).
 template <class E>
-__global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
+__device__ __forceinline__ void group_rows(const Group& g, int b) {
   constexpr int D = E::kDepth;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -604,15 +663,15 @@ __global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
   float e[kEpi] = {0.0f, 0.0f, 0.0f, 0.0f};
   Row w0;
   if (live) {
-    w0 = row_of(g.prod[0], r);
+    w0 = row_of(g.prod[0], r, b * g.mstride[0]);
     start_row<D>(w0, lane, mh, mt, m);
-    if (lane == 0) E::pre(g, r, e);
+    if (lane == 0) E::pre(epi_of(g, b), r, e);
   }
 
   // 2. x into shared memory while they fly; then the split form's b(x).
   for (int s = 0; s < g.slots; ++s) {
     if (g.rounds[s]) continue;
-    const float* src = g.src[s];
+    const float* src = g.src[s] + b * g.sstride[s];
     const int stride = g.stride[s];
     float* dst = smem_x + g.off[s];
     for (int i = threadIdx.x; i < g.len[s]; i += kThreads)
@@ -642,7 +701,7 @@ __global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
     slot_offsets<K>(g, 0, xo);
     finish_row<K, D>(w0, lane, xo, mh, mt, m, acc);
   }
-  run_rest<E, D, 1>(g, r, lane, m, acc);
+  run_rest<E, D, 1>(g, b, r, lane, m, acc);
   if constexpr (E::kSplit) run_lo<E, D, 0>(g, r, lane, acc);
 
   // 4. Fixed-order butterfly: every lane ends with the same totals.
@@ -651,7 +710,19 @@ __global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
 #pragma unroll
     for (int j = 0; j < E::kAcc; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
   }
-  if (lane == 0) E::store(acc, g, r, e);
+  if (lane == 0) E::store(acc, epi_of(g, b), r, e);
+}
+
+template <class E>
+__global__ void __launch_bounds__(kThreads) group_kernel(const Group g) {
+  group_rows<E>(g, 0);
+}
+
+// The batched grouped form: block (x, b) takes member b's rows x * kWarps ..,
+// every pointer moved by the member's stride.
+template <class E>
+__global__ void __launch_bounds__(kThreads) group_batched_kernel(const Group g) {
+  group_rows<E>(g, blockIdx.y);
 }
 
 // Slot s holds n values of src at the given stride; returns false when the
@@ -692,21 +763,30 @@ __host__ void set_product(Group& g, int p, const float* M, int N, int row0, int 
   g.prod[p].slot = slot;
 }
 
-template <class E>
-cudaError_t launch(const Group& g, cudaStream_t stream) {
-  if (g.smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+// Launches group_kernel<E>, or with kBatch group_batched_kernel<E> over
+// `members` members.
+template <class E, bool kBatch = false>
+cudaError_t launch(const Group& g, cudaStream_t stream, int members = 1) {
+  if (g.smem_bytes > kMaxSmemBytes || members < 1 || members > 65535)
+    return cudaErrorInvalidValue;
+  void (*kernel)(const Group);  // only the instance asked for is compiled
+  if constexpr (kBatch) {
+    kernel = group_batched_kernel<E>;
+  } else {
+    kernel = group_kernel<E>;
+  }
   // Above 48 KB dynamic shared memory must be enabled per kernel; remember
   // the largest size granted so the attribute is set once per size class.
   static int granted = 48 * 1024;
   if (g.smem_bytes > granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        group_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
     if (err != cudaSuccess) return err;
     granted = g.smem_bytes;
   }
   if (g.R == 0) return cudaSuccess;
-  const int blocks = (g.R + kWarps - 1) / kWarps;
-  group_kernel<E><<<blocks, kThreads, g.smem_bytes, stream>>>(g);
+  const dim3 blocks((g.R + kWarps - 1) / kWarps, members);
+  kernel<<<blocks, kThreads, g.smem_bytes, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -819,6 +899,212 @@ __host__ bool velocity_split_group(Group& g, const float* F3s, const float* F3p,
   return ok;
 }
 
+// Member strides of the batched f32 forms: B stacked copies of each
+// operand, member b's at b times the operand's size.
+__host__ void ustar_strides(Group& g, int nu, int np) {
+  g.mstride[0] = 1LL * nu * nu;
+  g.mstride[1] = 1LL * nu * np;
+  g.mstride[2] = 1LL * nu * nu;
+  g.sstride[0] = nu;
+  g.sstride[1] = np;
+  g.sstride[2] = nu;
+  g.ostride0 = g.istride0 = nu;
+  g.rstride = 1;
+}
+
+__host__ void pressure_strides(Group& g, int np, int nu) {
+  g.mstride[0] = 1LL * np * np;
+  g.mstride[1] = 1LL * np * nu;
+  g.sstride[0] = np;
+  g.sstride[1] = nu;
+  g.ostride0 = g.ostride1 = g.istride0 = g.istride1 = np;
+}
+
+__host__ void velocity_strides(Group& g, int ns, int np) {
+  g.mstride[0] = 1LL * ns * ns;
+  g.mstride[1] = g.mstride[2] = 2LL * ns * np;
+  g.sstride[0] = g.sstride[1] = 2LL * ns;  // u*'s x and y halves
+  g.sstride[2] = np;
+  g.ostride0 = g.istride0 = 2LL * ns;
+}
+
+// ---------------------------------------------------------------------------
+// The k-column form: y = M X, X (N, k) row-major with k up to kColsMax
+// columns a launch, staged in windows of W columns of M (see the note at the
+// top of the file).
+// ---------------------------------------------------------------------------
+
+constexpr int kColsMax = 32;
+
+struct Cols {
+  const float* M;
+  const float* x;  // X's first column of this launch; rows ld apart
+  float* y;        // Y's first column of this launch; rows ld apart
+  int R;
+  int N;
+  int k;
+  int ld;
+  int W;  // window width, a multiple of 128 columns of M
+  int smem_bytes;
+};
+
+// acc[j] += the float4 m times X's column j at the same columns, for the
+// window's float4 i (window-relative; the row's columns head + 4v .. + 3).
+// Slot j holds column j of X's window rows, 16-byte aligned, ws apart.
+template <int KB, int H>
+__device__ __forceinline__ void fma4_cols(const float4& m, int i, int k, int ws,
+                                          float* acc) {
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    if (j < k) {
+      const float4* x4 = reinterpret_cast<const float4*>(smem_x + j * ws);
+      const float4 a = x4[i];
+      float x0, x1, x2, x3;
+      if constexpr (H == 0) {
+        x0 = a.x; x1 = a.y; x2 = a.z; x3 = a.w;
+      } else {
+        const float4 b = x4[i + 1];
+        if constexpr (H == 1) {
+          x0 = a.y; x1 = a.z; x2 = a.w; x3 = b.x;
+        } else if constexpr (H == 2) {
+          x0 = a.z; x1 = a.w; x2 = b.x; x3 = b.y;
+        } else {
+          x0 = a.w; x1 = b.x; x2 = b.y; x3 = b.z;
+        }
+      }
+      acc[j] = fmaf(m.x, x0, acc[j]);
+      acc[j] = fmaf(m.y, x1, acc[j]);
+      acc[j] = fmaf(m.z, x2, acc[j]);
+      acc[j] = fmaf(m.w, x3, acc[j]);
+    }
+  }
+}
+
+// The row's float4s vb + lane, vb + lane + 32, ... below ve in one window,
+// the first batch already in m.
+template <int KB, int D, int H>
+__device__ __forceinline__ void cols_body(const Row& w, int lane, int vb, int ve, int k,
+                                          int ws, float4 (&m)[D], float* acc) {
+  const float4* mv = reinterpret_cast<const float4*>(w.m + w.head);
+  for (int b = vb;;) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int v = b + lane + 32 * u;
+      if (v < ve) fma4_cols<KB, H>(m[u], v - vb, k, ws, acc);
+    }
+    b += 32 * D;
+    if (b >= ve) break;
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int v = b + lane + 32 * u;
+      if (v < ve) m[u] = load_m4(mv + v);
+    }
+  }
+}
+
+// kThreads threads a block and c.smem_bytes of dynamic shared memory; warp
+// w of block b takes row b * kWarps + w, for KB >= c.k columns.
+template <int KB>
+__global__ void __launch_bounds__(kThreads) cols_kernel(const Cols c) {
+  constexpr int D = 4;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = r < c.R;
+  const int ws = c.W + 4;  // a slot's length: the window and its overhang
+  Row w = {};
+  float mh = 0.0f, mt = 0.0f;
+  int t = 0;  // this lane's tail column
+  if (live) {
+    Product p = {};
+    p.M = c.M;
+    p.N = c.N;
+    w = row_of(p, r);
+    t = w.head + 4 * w.nvec + lane;
+    if (lane < w.head) mh = load_m1(w.m + lane);
+    if (t < w.n) mt = load_m1(w.m + t);
+  }
+  float acc[KB];
+#pragma unroll
+  for (int j = 0; j < KB; ++j) acc[j] = 0.0f;
+
+  for (int c0 = 0; c0 < c.N; c0 += c.W) {
+    // 1. The window's first loads of the row.
+    const int vb = c0 >> 2;
+    const int ve = live ? min(vb + (c.W >> 2), w.nvec) : 0;
+    float4 m[D];
+    if (vb < ve) {
+      const float4* mv = reinterpret_cast<const float4*>(w.m + w.head);
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        const int v = vb + lane + 32 * u;
+        if (v < ve) m[u] = load_m4(mv + v);
+      }
+    }
+    // 2. X's rows c0 .. c0 + ws - 1 into the slots, once every warp is done
+    //    with the previous window.
+    __syncthreads();
+    const int rows = min(ws, c.N - c0);
+    for (int f = threadIdx.x; f < rows * c.k; f += kThreads) {
+      const int i = f / c.k;
+      const int j = f - i * c.k;
+      copy_async(smem_x + j * ws + i, c.x + static_cast<size_t>(c0 + i) * c.ld + j);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (!live) continue;
+
+    // 3. Head (window 0), the window's float4s, then the tail if it lies
+    //    here.
+    if (c0 == 0 && lane < w.head) {
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        if (j < c.k) acc[j] = fmaf(mh, smem_x[j * ws + lane], acc[j]);
+    }
+    if (vb < ve) {
+      switch (w.head) {
+        case 0: cols_body<KB, D, 0>(w, lane, vb, ve, c.k, ws, m, acc); break;
+        case 1: cols_body<KB, D, 1>(w, lane, vb, ve, c.k, ws, m, acc); break;
+        case 2: cols_body<KB, D, 2>(w, lane, vb, ve, c.k, ws, m, acc); break;
+        default: cols_body<KB, D, 3>(w, lane, vb, ve, c.k, ws, m, acc); break;
+      }
+    }
+    if (t < w.n && t >= c0 && t < c0 + c.W) {
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        if (j < c.k) acc[j] = fmaf(mt, smem_x[j * ws + (t - c0)], acc[j]);
+    }
+  }
+  if (!live) return;  // whole warps leave together; no barrier follows
+
+  // 4. The single form's xor tree, per column.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < KB; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  }
+  if (lane == 0) {
+    float* yr = c.y + static_cast<size_t>(r) * c.ld;
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+      if (j < c.k) yr[j] = acc[j];
+  }
+}
+
+template <int KB>
+cudaError_t launch_cols(const Cols& c, cudaStream_t stream) {
+  static int granted = 48 * 1024;
+  if (c.smem_bytes > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cols_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_bytes);
+    if (err != cudaSuccess) return err;
+    granted = c.smem_bytes;
+  }
+  if (c.R == 0) return cudaSuccess;
+  cols_kernel<KB><<<(c.R + kWarps - 1) / kWarps, kThreads, c.smem_bytes, stream>>>(c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int matvec_f32(const float* M, const float* x, float* y, int R, int N,
@@ -908,4 +1194,56 @@ extern "C" int step_velocity_df32(const float* F3s, const float* F3p,
   if (!velocity_split_group(g, F3s, F3p, L3s, L3p, ustar, dp, k3, lk3, unew, ns, np))
     return cudaErrorInvalidValue;
   return launch<VelocitySplit>(g, static_cast<cudaStream_t>(stream));
+}
+
+// y[:, :k] = M x[:, :k] for x (N, ld) and y (R, ld) row-major, 1 <= k <= 32
+// columns, x staged in windows of W columns of M (W a multiple of 128).
+extern "C" int matvec_cols_f32(const float* M, const float* x, float* y, int R, int N,
+                               int k, int ld, int W, void* stream) {
+  if (k < 1 || k > kColsMax || ld < k || N < 1 || W < 128 || W % 128 != 0)
+    return cudaErrorInvalidValue;
+  const long long bytes = 4LL * k * (W + 4);
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  const Cols c = {M, x, y, R, N, k, ld, W, static_cast<int>(bytes)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 4) return launch_cols<4>(c, s);
+  if (k <= 8) return launch_cols<8>(c, s);
+  if (k <= 16) return launch_cols<16>(c, s);
+  return launch_cols<32>(c, s);
+}
+
+// The batched f32 forms: every operand stacked over B members, member b's
+// operands at b times their size (F1u (B, nu, nu), u (B, nu), rho (B), ...).
+extern "C" int step_ustar_batched_f32(const float* F1u, const float* F1p,
+                                      const float* A1Z, const float* u, const float* p,
+                                      const float* c, const float* rho, const float* k1,
+                                      float* ustar, int nu, int np, int B,
+                                      void* stream) {
+  Group g;
+  if (!ustar_group(g, F1u, F1p, A1Z, u, p, c, rho, k1, ustar, nu, np))
+    return cudaErrorInvalidValue;
+  ustar_strides(g, nu, np);
+  return launch<UStar, true>(g, static_cast<cudaStream_t>(stream), B);
+}
+
+extern "C" int step_pressure_batched_f32(const float* F2p, const float* F2u,
+                                         const float* p, const float* ustar,
+                                         const float* k2, float* pnew, float* dp, int np,
+                                         int nu, int B, void* stream) {
+  Group g;
+  if (!pressure_group(g, F2p, F2u, p, ustar, k2, pnew, dp, np, nu))
+    return cudaErrorInvalidValue;
+  pressure_strides(g, np, nu);
+  return launch<Pressure, true>(g, static_cast<cudaStream_t>(stream), B);
+}
+
+extern "C" int step_velocity_batched_f32(const float* F3s, const float* F3p,
+                                         const float* ustar, const float* dp,
+                                         const float* k3, float* unew, int ns, int np,
+                                         int B, void* stream) {
+  Group g;
+  if (!velocity_group(g, F3s, F3p, ustar, dp, k3, unew, ns, np))
+    return cudaErrorInvalidValue;
+  velocity_strides(g, ns, np);
+  return launch<Velocity, true>(g, static_cast<cudaStream_t>(stream), B);
 }

@@ -10,7 +10,7 @@ from .marking import (
     UNMARKED,
 )
 from .smooth import smooth
-from .xdmf import load_npz, read_xdmf, save_npz
+from .xdmf import load_npz, read_xdmf, save_npz, write_xdmf
 
 __all__ = [
     "TriMesh",
@@ -26,4 +26,5 @@ __all__ = [
     "read_xdmf",
     "save_npz",
     "smooth",
+    "write_xdmf",
 ]

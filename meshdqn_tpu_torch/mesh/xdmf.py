@@ -1,7 +1,8 @@
 """Triangle-mesh I/O: XDMF/HDF5 in, and a compact .npz form for the card.
 
-`read_xdmf` is a copy of meshdqn_tpu/mesh/xdmf.py's reader (XDMF 3.0 with
-geometry and topology in an HDF5 file).  It imports h5py when it is called,
+`read_xdmf` and `write_xdmf` are copies of meshdqn_tpu/mesh/xdmf.py's reader
+and writer (XDMF 3.0 with geometry and topology in an HDF5 file).  They
+import h5py when they are called,
 so importing the package never needs it: the machines that run the port may
 have no h5py.  Such a machine reads the meshes from .npz files made here:
 
@@ -57,6 +58,35 @@ def read_xdmf(path: str) -> TriMesh:
         coords = coords[:, :2]
     cells = np.asarray(_load(topo), dtype=np.int32)
     return TriMesh(coords=coords, cells=cells)
+
+
+def write_xdmf(path: str, mesh: TriMesh) -> None:
+    """Write mesh in the same XDMF 3.0 + HDF5 layout the stock files use: the
+    heavy data in an .h5 of the same stem beside `path`."""
+    import h5py
+
+    base, _ = os.path.splitext(path)
+    h5name = os.path.basename(base) + ".h5"
+    h5path = os.path.join(os.path.dirname(os.path.abspath(path)), h5name)
+    with h5py.File(h5path, "w") as f:
+        f.create_dataset("data0", data=mesh.coords)
+        f.create_dataset("data1", data=mesh.cells.astype(np.int32))
+        f.create_dataset("data2", data=np.zeros(len(mesh.cells), dtype=np.int32))
+    V, C = mesh.num_vertices, mesh.num_cells
+    xml = (
+        '<Xdmf Version="3.0"><Domain><Grid Name="Grid">'
+        f'<Geometry GeometryType="XY"><DataItem DataType="Float" Dimensions="{V} 2" '
+        f'Format="HDF" Precision="8">{h5name}:/data0</DataItem></Geometry>'
+        f'<Topology NodesPerElement="3" NumberOfElements="{C}" TopologyType="Triangle">'
+        f'<DataItem DataType="Int" Dimensions="{C} 3" Format="HDF" Precision="4">'
+        f"{h5name}:/data1</DataItem></Topology>"
+        '<Attribute AttributeType="Scalar" Center="Cell" Name="name_to_read">'
+        f'<DataItem DataType="Int" Dimensions="{C}" Format="HDF" Precision="4">'
+        f"{h5name}:/data2</DataItem></Attribute>"
+        "</Grid></Domain></Xdmf>"
+    )
+    with open(path, "w") as f:
+        f.write(xml)
 
 
 def mesh_sha8(xdmf_path: str) -> str:

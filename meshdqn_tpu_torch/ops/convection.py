@@ -7,6 +7,15 @@ gather the 12 local velocity dofs per cell, evaluate u and grad(u) at the
 quadrature points, contract with the test basis, and sum into the global
 vector.
 
+`convection_columns` (the ensemble's velocity columns) and
+`convection_members` (the batched flows' members, each with its own table)
+call the single form once per column or member and stack the results.  A
+batched form would send `U @ phi.T`, `torch.bmm` and the slot sum through
+other shapes, for which torch may pick other kernels and another order of
+summation; the loop gives each column and member the single call's bits by
+construction, which the ensemble's member of amplitude 1.0 and the batch's
+base member rely on to equal their solo solves bit for bit.
+
 The sum is deterministic.  Atomic scatters (`index_add_` on CUDA) change the
 order of additions, and so the bits, from run to run; instead each global
 dof owns a padded row of the (cell, local slot) entries it receives
@@ -150,3 +159,18 @@ def convection_vector(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
     relem = ((k.wdet[:, None, :] * conv) @ k.phi).reshape(-1)
     padded = torch.cat([relem, relem.new_zeros(1)])
     return padded[k.dof_slots].sum(dim=1)
+
+
+def convection_columns(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
+    """c(u[:, j]) for each column of u (ndofs, B), as (ndofs, B): the single
+    call per column (see the module's note)."""
+    return torch.stack([convection_vector(k, u[:, j]) for j in range(u.shape[1])],
+                       dim=1)
+
+
+def convection_members(kernels, u: torch.Tensor) -> torch.Tensor:
+    """kernels[b](u[b]) for each member of u (B, ndofs), as (B, ndofs): the
+    single call per member, each with its own table."""
+    if len(kernels) != u.shape[0]:
+        raise ValueError(f"{len(kernels)} tables for {u.shape[0]} members")
+    return torch.stack([convection_vector(k, u[b]) for b, k in enumerate(kernels)])

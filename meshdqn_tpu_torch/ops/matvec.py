@@ -3,7 +3,11 @@
 Kernels (csrc/matvec.cu, CUDA C++ for sm_90a, bound with ctypes):
 
 * `matvec` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_pallas
-  (_mv_kernel): y = m @ x, x of shape (N,) or (N, k) with k <= 2.
+  (_mv_kernel): y = m @ x, x of shape (N,) or (N, k) for any k >= 1.  k <= 2
+  is the single form, x staged whole; k > 2 the k-column form, x staged in
+  windows of `column_window(N, k)` columns of m, up to `COLS_MAX` columns a
+  launch (a larger k takes several launches, each re-reading m).  Every
+  column of y equals a k = 1 launch on that column bit for bit.
 * `step_ustar`, `step_pressure`, `step_velocity`: the same kernel in its
   grouped form, the fused step's seven products and the elementwise work
   around them in three launches (solver/fused.py).  Each equals its plain
@@ -18,6 +22,12 @@ Kernels (csrc/matvec.cu, CUDA C++ for sm_90a, bound with ctypes):
   order of meshdqn_tpu/solver/fused.py:fused_step_df32.  It replaces that
   step's f32 matmuls and its bf16 low-limb matmuls.  Plain versions
   `step_*_df32_reference`.
+* The grouped forms also take B members at once (`BatchedFlows`):
+  operators with a leading member axis (B, R, N) and vectors (B, n), one
+  launch per form for all members, each member equal bit for bit to a
+  grouped launch on its slices (plain version: `per_member` over the
+  step_*_reference functions).  Counted apart, in
+  `step_*.batched_launches`.
 * `matvec_dual` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_dual_pallas
   (_mv_dual_kernel): y = m @ x_hi + m @ x_lo, reading m once, for a state
   carried as two f32 words.  No solver mode carries one, in the port or in
@@ -48,6 +58,10 @@ from . import build
 
 # Largest dynamic shared memory a block may use on sm_90 (csrc/matvec.cu).
 MAX_SMEM_BYTES = 232448
+# The k-column form: columns a launch, and the shared memory a block's
+# window of x may take (two blocks an SM).
+COLS_MAX = 32
+COLS_SMEM_BYTES = 96 * 1024
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -71,15 +85,30 @@ def _lib():
         lib.step_ustar_df32.argtypes = [_c_void_p] * 13 + [_c_int] * 2 + [_c_void_p]
         lib.step_pressure_df32.argtypes = [_c_void_p] * 10 + [_c_int] * 2 + [_c_void_p]
         lib.step_velocity_df32.argtypes = [_c_void_p] * 9 + [_c_int] * 2 + [_c_void_p]
+        lib.matvec_cols_f32.argtypes = [_c_void_p] * 3 + [_c_int] * 5 + [_c_void_p]
+        lib.step_ustar_batched_f32.argtypes = [_c_void_p] * 9 + [_c_int] * 3 + [_c_void_p]
+        lib.step_pressure_batched_f32.argtypes = ([_c_void_p] * 7 + [_c_int] * 3
+                                                  + [_c_void_p])
+        lib.step_velocity_batched_f32.argtypes = ([_c_void_p] * 6 + [_c_int] * 3
+                                                  + [_c_void_p])
         for fn in (lib.step_ustar_f32, lib.step_pressure_f32, lib.step_velocity_f32,
-                   lib.step_ustar_df32, lib.step_pressure_df32, lib.step_velocity_df32):
+                   lib.step_ustar_df32, lib.step_pressure_df32, lib.step_velocity_df32,
+                   lib.matvec_cols_f32, lib.step_ustar_batched_f32,
+                   lib.step_pressure_batched_f32, lib.step_velocity_batched_f32):
             fn.restype = _c_int
         _LIB = lib
     return _LIB
 
 
 def matvec_reference(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of `matvec`, in the inputs' dtype."""
+    """Plain version of `matvec`, in the inputs' dtype: m @ x one column at a
+    time, as the kernel gives every column a k = 1 launch's bits.  (On the
+    CPU an f32 product of a few columns sums in blocks that round more: the
+    ensemble step's pressure, a small difference of terms ~1e3 larger, came
+    out of tests/test_torch_batch.py's 100 steps 3.9x further from the f64
+    evaluation than the JAX package's through it, past that test's 2x.)"""
+    if x.dim() == 2:
+        return torch.stack([m @ x[:, j] for j in range(x.shape[1])], dim=1)
     return m @ x
 
 
@@ -144,8 +173,18 @@ def _check_current_device(device: torch.device) -> None:
                          "device")
 
 
-def _check(m: torch.Tensor, xs) -> tuple[int, int, int]:
-    """Validate CUDA operands for the kernel; returns (R, N, k)."""
+def column_window(n: int, k: int) -> int:
+    """The k-column form's window: the columns of m (a multiple of 128) whose
+    rows of x a block stages at once for k <= COLS_MAX columns, 4 k (W + 4)
+    bytes within COLS_SMEM_BYTES, and no wider than n needs."""
+    w = (COLS_SMEM_BYTES // (4 * k) - 4) // 128 * 128
+    return min(w, -(-n // 128) * 128)
+
+
+def _check(m: torch.Tensor, xs, max_k: int | None = 2) -> tuple[int, int, int]:
+    """Validate CUDA operands for the kernel; returns (R, N, k).  For k <= 2
+    every x column is staged whole, so it must fit in shared memory; max_k
+    None takes any k."""
     if m.dim() != 2:
         raise ValueError(f"m must be 2-D, got shape {tuple(m.shape)}")
     R, N = m.shape
@@ -153,10 +192,13 @@ def _check(m: torch.Tensor, xs) -> tuple[int, int, int]:
     if len(shape) not in (1, 2) or shape[0] != N:
         raise ValueError(f"x of shape {tuple(shape)} does not match m {(R, N)}")
     k = 1 if len(shape) == 1 else shape[1]
-    if k not in (1, 2):
-        raise ValueError(f"the kernel takes k in (1, 2) right-hand sides, got {k}")
+    if k < 1 or (max_k is not None and k > max_k):
+        raise ValueError(f"the kernel takes 1 to {max_k or 'any'} right-hand sides, "
+                         f"got {k}")
+    if k > 2 and N < 1:
+        raise ValueError("the k-column form takes m with columns")
     smem = -(-N // 4) * 4 * k * len(xs) * 4  # each x column padded to 16 bytes
-    if smem > MAX_SMEM_BYTES:
+    if k <= 2 and smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"x needs {smem} bytes of shared memory, above the {MAX_SMEM_BYTES} "
             "a block may use"
@@ -180,16 +222,26 @@ def _raise_on(err: int, name: str):
 
 
 def matvec(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = m @ x for m (R, N) and x (N,) or (N, k<=2), f32 on CUDA."""
+    """y = m @ x for m (R, N) and x (N,) or (N, k), f32 on CUDA: one launch
+    for k <= COLS_MAX, else one per COLS_MAX columns (each re-reads m)."""
     if not m.is_cuda and not x.is_cuda:
         return matvec_reference(m, x)
-    R, N, k = _check(m, (x,))
+    R, N, k = _check(m, (x,), max_k=None)
     y = torch.empty((R,) if x.dim() == 1 else (R, k),
                     dtype=torch.float32, device=m.device)
-    err = _lib().matvec_f32(m.data_ptr(), x.data_ptr(), y.data_ptr(), R, N, k,
-                            _stream(m))
-    _raise_on(err, "matvec_f32")
-    matvec.launches += 1
+    if k <= 2:
+        err = _lib().matvec_f32(m.data_ptr(), x.data_ptr(), y.data_ptr(), R, N, k,
+                                _stream(m))
+        _raise_on(err, "matvec_f32")
+        matvec.launches += 1
+        return y
+    for c0 in range(0, k, COLS_MAX):
+        kc = min(COLS_MAX, k - c0)
+        err = _lib().matvec_cols_f32(m.data_ptr(), x.data_ptr() + 4 * c0,
+                                     y.data_ptr() + 4 * c0, R, N, kc, k,
+                                     column_window(N, kc), _stream(m))
+        _raise_on(err, "matvec_cols_f32")
+        matvec.launches += 1
     return y
 
 
@@ -287,7 +339,12 @@ def _check_group(form: str, ops, vecs, staged) -> dict:
 
 def step_ustar(F1u, F1p, A1Z, rho, k1, u, p, c) -> torch.Tensor:
     """u* = F1u u + F1p p - rho A1Z c + k1 in one launch, f32 on CUDA; rho
-    is a 0-d tensor, read on the device."""
+    is a 0-d tensor, read on the device.  With a leading member axis on
+    every operand (rho (B,)), the batched form: one launch for all members."""
+    if F1u.dim() == 3:
+        if not (u.is_cuda or F1u.is_cuda):
+            return per_member(step_ustar_reference, F1u, F1p, A1Z, rho, k1, u, p, c)
+        return _step_ustar_batched(F1u, F1p, A1Z, rho, k1, u, p, c)
     if not (u.is_cuda or F1u.is_cuda):
         return step_ustar_reference(F1u, F1p, A1Z, rho, k1, u, p, c)
     n = _check_group(
@@ -310,7 +367,11 @@ def step_ustar(F1u, F1p, A1Z, rho, k1, u, p, c) -> torch.Tensor:
 
 def step_pressure(F2p, F2u, k2, p, u_star) -> tuple[torch.Tensor, torch.Tensor]:
     """(p', p' - p) with p' = F2p p + F2u u* + k2, in one launch, f32 on
-    CUDA."""
+    CUDA; batched with a leading member axis, as `step_ustar`."""
+    if F2p.dim() == 3:
+        if not (p.is_cuda or F2p.is_cuda):
+            return per_member(step_pressure_reference, F2p, F2u, k2, p, u_star)
+        return _step_pressure_batched(F2p, F2u, k2, p, u_star)
     if not (p.is_cuda or F2p.is_cuda):
         return step_pressure_reference(F2p, F2u, k2, p, u_star)
     n = _check_group(
@@ -332,7 +393,12 @@ def step_pressure(F2p, F2u, k2, p, u_star) -> tuple[torch.Tensor, torch.Tensor]:
 
 def step_velocity(F3s, F3p, k3, u_star, dp) -> torch.Tensor:
     """u' = [F3s u*_x + F3p[0] dp; F3s u*_y + F3p[1] dp] + k3 in one
-    launch, f32 on CUDA; F3p is (2, Ns, Np)."""
+    launch, f32 on CUDA; F3p is (2, Ns, Np).  Batched with a leading member
+    axis, as `step_ustar` (F3p (B, 2, Ns, Np))."""
+    if F3s.dim() == 3:
+        if not (u_star.is_cuda or F3s.is_cuda):
+            return per_member(step_velocity_reference, F3s, F3p, k3, u_star, dp)
+        return _step_velocity_batched(F3s, F3p, k3, u_star, dp)
     if not (u_star.is_cuda or F3s.is_cuda):
         return step_velocity_reference(F3s, F3p, k3, u_star, dp)
     n = _check_group(
@@ -351,6 +417,82 @@ def step_velocity(F3s, F3p, k3, u_star, dp) -> torch.Tensor:
     )
     _raise_on(err, "step_velocity_f32")
     step_velocity.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# The batched grouped form: the three launches for B members at once
+# (solver/batch.py).  Operators carry a leading member axis (B, R, N), rho is
+# (B,), vectors are (B, n).  The plain version runs a form member by member.
+# --------------------------------------------------------------------------
+
+
+def per_member(form, *args, **kw):
+    """`form` (a step_* wrapper or plain version) on each member's slices of
+    args, stacked: the plain version of a batched launch, and with the
+    grouped wrappers the B separate launches a batched launch equals."""
+    outs = [form(*(a[b] for a in args), **kw) for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def _step_ustar_batched(F1u, F1p, A1Z, rho, k1, u, p, c) -> torch.Tensor:
+    n = _check_group(
+        "ustar_batched",
+        (("F1u", F1u, ("b", "nu", "nu")), ("F1p", F1p, ("b", "nu", "np")),
+         ("A1Z", A1Z, ("b", "nu", "nu")), ("rho", rho, ("b",)),
+         ("k1", k1, ("b", "nu"))),
+        (("u", u, ("b", "nu")), ("p", p, ("b", "np")), ("c", c, ("b", "nu"))),
+        ("nu", "np", "nu"),
+    )
+    out = torch.empty(n["b"], n["nu"], dtype=torch.float32, device=u.device)
+    err = _lib().step_ustar_batched_f32(
+        F1u.data_ptr(), F1p.data_ptr(), A1Z.data_ptr(), u.data_ptr(), p.data_ptr(),
+        c.data_ptr(), rho.data_ptr(), k1.data_ptr(), out.data_ptr(), n["nu"], n["np"],
+        n["b"], _stream(u),
+    )
+    _raise_on(err, "step_ustar_batched_f32")
+    step_ustar.batched_launches += 1
+    return out
+
+
+def _step_pressure_batched(F2p, F2u, k2, p, u_star):
+    n = _check_group(
+        "pressure_batched",
+        (("F2p", F2p, ("b", "np", "np")), ("F2u", F2u, ("b", "np", "nu")),
+         ("k2", k2, ("b", "np"))),
+        (("p", p, ("b", "np")), ("u_star", u_star, ("b", "nu"))),
+        ("np", "nu"),
+    )
+    p_new = torch.empty(n["b"], n["np"], dtype=torch.float32, device=p.device)
+    dp = torch.empty_like(p_new)
+    err = _lib().step_pressure_batched_f32(
+        F2p.data_ptr(), F2u.data_ptr(), p.data_ptr(), u_star.data_ptr(), k2.data_ptr(),
+        p_new.data_ptr(), dp.data_ptr(), n["np"], n["nu"], n["b"], _stream(p),
+    )
+    _raise_on(err, "step_pressure_batched_f32")
+    step_pressure.batched_launches += 1
+    return p_new, dp
+
+
+def _step_velocity_batched(F3s, F3p, k3, u_star, dp) -> torch.Tensor:
+    n = _check_group(
+        "velocity_batched",
+        (("F3s", F3s, ("b", "ns", "ns")), ("F3p", F3p, ("b", 2, "ns", "np")),
+         ("k3", k3, ("b", "nu"))),
+        (("u_star", u_star, ("b", "nu")), ("dp", dp, ("b", "np"))),
+        ("ns", "ns", "np"),
+    )
+    if n["nu"] != 2 * n["ns"]:
+        raise ValueError(f"u* and k3 have {n['nu']} entries, not 2 Ns = {2 * n['ns']}")
+    out = torch.empty(n["b"], n["nu"], dtype=torch.float32, device=u_star.device)
+    err = _lib().step_velocity_batched_f32(
+        F3s.data_ptr(), F3p.data_ptr(), u_star.data_ptr(), dp.data_ptr(), k3.data_ptr(),
+        out.data_ptr(), n["ns"], n["np"], n["b"], _stream(u_star),
+    )
+    _raise_on(err, "step_velocity_batched_f32")
+    step_velocity.batched_launches += 1
     return out
 
 
@@ -484,6 +626,9 @@ matvec_dual.launches = 0
 step_ustar.launches = 0
 step_pressure.launches = 0
 step_velocity.launches = 0
+step_ustar.batched_launches = 0
+step_pressure.batched_launches = 0
+step_velocity.batched_launches = 0
 step_ustar_df32.launches = 0
 step_pressure_df32.launches = 0
 step_velocity_df32.launches = 0

@@ -376,10 +376,11 @@ def ipcs_step(dev: DeviceOperators, state: FlowState, precision: str,
     return FlowState(u=u_new, p=p_new), (drag, lift)
 
 
-def _loop(step, state: FlowState, n_steps: int, dtype, device):
+def _loop(step, state, n_steps: int, dtype, device, members: tuple = ()):
     """n_steps of step(state) -> (state, (drag, lift)); drag and lift land in
-    preallocated device tensors, so the loop never waits for the device."""
-    drags = torch.empty(n_steps, dtype=dtype, device=device)
+    preallocated device tensors (n_steps, *members), so the loop never waits
+    for the device."""
+    drags = torch.empty((n_steps, *members), dtype=dtype, device=device)
     lifts = torch.empty_like(drags)
     for i in range(n_steps):
         state, (drags[i], lifts[i]) = step(state)

@@ -70,8 +70,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     M = torch.zeros(8, 8, device=cuda)
     with pytest.raises(TypeError):
         mv.matvec(M.double(), torch.zeros(8, device=cuda, dtype=torch.float64))
-    with pytest.raises(ValueError):
-        mv.matvec(M, torch.zeros(8, 3, device=cuda))
+    with pytest.raises(ValueError):  # no right-hand side
+        mv.matvec(M, torch.zeros(8, 0, device=cuda))
+    with pytest.raises(ValueError):  # the k-column form is not dual
+        mv.matvec_dual(M, *(torch.zeros(8, 3, device=cuda),) * 2)
     with pytest.raises(ValueError):
         mv.matvec(M.T, torch.zeros(8, device=cuda))
     with pytest.raises(ValueError):
@@ -170,6 +172,98 @@ def test_grouped_launches_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):  # x: 60,001 floats
         z = lambda *shape: torch.zeros(*shape, device=cuda)
         mv.step_pressure(z(1, 1), z(1, 60000), z(1), z(1), z(60000))
+
+
+# --------------------------------------------------------------------------
+# The matvec kernel's k-column form (k > 2: the ensemble's products) and the
+# grouped form's batched instance (the batched flows' three launches).
+# --------------------------------------------------------------------------
+
+# The ensemble's products on both packs at 16 members (F3s on the (Ns, 2B)
+# stack at k = 32), F1u past one launch's 32 columns, and small ragged
+# shapes with every N % 4.
+COLS_SHAPES = [(6644, 6644, 16), (6644, 876, 16), (876, 6644, 16), (876, 876, 16),
+               (3322, 3322, 32), (6644, 6644, 40), (6050, 6050, 16), (797, 6050, 3),
+               (3025, 3025, 32), (5, 3, 7), (33, 1, 3), (9, 130, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,k", COLS_SHAPES)
+def test_k_columns_match_plain_and_equal_k1_launches(cuda, R, N, k):
+    g = torch.Generator(device="cpu").manual_seed(R * 7 + N + k)
+    M = torch.randn(R, N, generator=g).to(cuda)
+    X = torch.randn(N, k, generator=g).to(cuda)
+    before = mv.matvec.launches
+    y = mv.matvec(M, X)
+    assert mv.matvec.launches == before + -(-k // mv.COLS_MAX)
+    assert y.shape == (R, k) and torch.equal(y, mv.matvec(M, X))
+    ones = torch.stack([mv.matvec(M, X[:, j].contiguous()) for j in range(k)], dim=1)
+    assert torch.equal(y, ones)  # every column a k = 1 launch's bits
+    tol = mv.gap_tolerance(N)
+    yp = mv.matvec_reference(M, X)
+    assert mv.relative_gap(y, yp) <= tol
+    for bits in (10, 7):
+        rounded = mv.matvec_reference(mv.round_mantissa(M, bits),
+                                       mv.round_mantissa(X, bits))
+        assert mv.relative_gap(rounded, yp) > tol
+
+
+@pytest.mark.cuda
+def test_k_columns_from_shifted_storage(cuda):
+    """M one element past a 16-byte boundary: every row has a head."""
+    M = torch.empty(877 * 3322 + 1, device=cuda)[1:].view(877, 3322)
+    M.copy_(torch.randn(877, 3322))
+    X = torch.randn(3322, 16, device=cuda)
+    ones = torch.stack([mv.matvec(M, X[:, j].contiguous()) for j in range(16)], dim=1)
+    assert torch.equal(mv.matvec(M, X), ones)
+
+
+BATCH_SIZES = [(3322, 876, 5), (3025, 797, 3), (5, 33, 4), (33, 7, 2), (438, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,npr,B", BATCH_SIZES)
+def test_batched_grouped_launches_equal_member_launches(cuda, ns, npr, B):
+    ts = [_step_operands(cuda, ns, npr, seed=ns * 7 + npr + b) for b in range(B)]
+    t = {n: torch.stack([tb[n] for tb in ts]) for n in ts[0]}
+    for grouped, plain, names, terms in _forms(ns, npr):
+        args = [t[n] for n in names]
+        before = grouped.batched_launches, grouped.launches
+        y = _tuple(grouped(*args))
+        assert (grouped.batched_launches, grouped.launches) == (before[0] + 1, before[1])
+        assert all(map(torch.equal, y, _tuple(mv.per_member(grouped, *args))))
+        yp = torch.cat([a.flatten() for a in _tuple(mv.per_member(plain, *args))])
+        assert mv.relative_gap(torch.cat([a.flatten() for a in y]), yp) <= (
+            mv.gap_tolerance(terms))
+
+
+@pytest.mark.cuda
+def test_ensemble_member_one_equals_the_fused_solve(cuda):
+    """100 ensemble steps on the ys930 pack (amplitudes 0.7, 1.0, 1.3):
+    the member of amplitude 1.0 bit-equal to the solo fused f32 solve at
+    every step, seven k-column launches a step."""
+    import pathlib
+
+    import numpy as np
+
+    from meshdqn_tpu_torch.mesh import TriMesh
+    from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver, fused_step
+    from meshdqn_tpu_torch.solver.ensemble import EnsembleFlows, ensemble_step
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    z = np.load(repo / "checkpoints" / "ys930_results" / "ground_truth.npz")
+    mesh = TriMesh(z["coords"], z["cells"])
+    ens = EnsembleFlows(mesh, [0.7, 1.0, 1.3])
+    solo = IPCSSolver(mesh, IPCSConfig(precision="f32"))
+    e, s = ens.initial_state(), solo.initial_state()
+    before = mv.matvec.launches
+    for i in range(100):
+        e, (d, _) = ensemble_step(ens.solver.dev, ens.K1, ens.K3, e)
+        s, (ds, _) = fused_step(solo.dev, s)
+        assert torch.equal(e.u[:, 1], s.u) and torch.equal(e.p[:, 1], s.p), i
+    assert mv.matvec.launches == before + 7 * 100
+    assert abs(d[1].item() / ds.item() - 1) < 1e-6
+    assert torch.isfinite(e.u).all() and torch.isfinite(e.p).all()
 
 
 # --------------------------------------------------------------------------

@@ -31,14 +31,15 @@ def _operators(ns, np_, dtype, seed=0):
 
 def _step_products_as_written(o, u_n, p_n, c):
     """solver/fused.py's step expression as it stood with seven single
-    products (each m @ x on the CPU), written out here as the rounding spec
-    the grouped kernel must follow."""
+    products (each m @ x on the CPU, a two-column x one column at a time, as
+    the plain product takes it), written out here as the rounding spec the
+    grouped kernel must follow."""
     u_star = o["F1u"] @ u_n + o["F1p"] @ p_n - o["rho"] * (o["A1Z"] @ c) + o["k1"]
     p_new = o["F2p"] @ p_n + o["F2u"] @ u_star + o["k2"]
     dp = p_new - p_n
     ns = o["F3s"].shape[0]
     ustack = torch.stack([u_star[:ns], u_star[ns:]], dim=1)
-    y = o["F3s"] @ ustack
+    y = torch.stack([o["F3s"] @ ustack[:, j] for j in range(2)], dim=1)
     corr = (o["F3p"].view(2 * ns, -1) @ dp).view(2, ns)
     y = y + corr.T
     u_new = torch.cat([y[:, 0], y[:, 1]]) + o["k3"]
