@@ -70,10 +70,12 @@ The kernels are built from source at first use.  Phases, one JSON line each
              (matvec_cols) at the ensemble step's ys930 shapes at 16 members
              (F3s at 32 and 16 columns), F1u at 40 columns (two launches)
              and ah93w145's F1u at 16: every column also bit-equal to a
-             k = 1 launch; library call torch.matmul.  Sparse rows also
-             hold the gap over the rows that are not identity (Dirichlet)
-             rows; the ELL kernel also at the unfused step's operators on
-             both packs, f32 and f64
+             k = 1 launch; library call torch.matmul; each row with the
+             launch shape ops.matvec.plan_cols chose (rows a warp, rows a
+             block, head classes, window) and the bytes of x it staged.
+             Sparse rows also hold the gap over the rows that are not
+             identity (Dirichlet) rows; the ELL kernel also at the unfused
+             step's operators on both packs, f32 and f64
   solve      per pack: the fused f32 solve from rest with the launch
              counters zeroed (3 grouped launches a step and no single one,
              asserted); drag/lift within 1e-3 of the pack's f64 values
@@ -622,15 +624,17 @@ def profile_steps(solver, state, path, n=50):
     # profiler also slows the host; busy over the unprofiled wall time of
     # the same steps, just before, is an estimate across two windows.
     unprofiled_ms = start.elapsed_time(end)
-    emit({"phase": "profile", "path": path, "steps": n, "wall_ms_per_step": wall_ms / n,
-          "unprofiled_wall_ms_per_step": unprofiled_ms / n,
-          "host_issue_ms_per_step": issue_ms / n,
-          "device_busy_ms_per_step": busy / n if busy else None,
-          "device_ops_per_step": kernels / n,
-          "device_busy_share": busy / wall_ms if busy else None,
-          "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
-          "port_kernels_ms_per_step": ours,
-          "top_ms_per_step": {k: v / n for k, v in top}})
+    row = {"phase": "profile", "path": path, "steps": n, "wall_ms_per_step": wall_ms / n,
+           "unprofiled_wall_ms_per_step": unprofiled_ms / n,
+           "host_issue_ms_per_step": issue_ms / n,
+           "device_busy_ms_per_step": busy / n if busy else None,
+           "device_ops_per_step": kernels / n,
+           "device_busy_share": busy / wall_ms if busy else None,
+           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
+           "port_kernels_ms_per_step": ours,
+           "top_ms_per_step": {k: v / n for k, v in top}}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -663,8 +667,9 @@ def check_cols(cuda, meshes, mem_peak, flop_peak, flush):
     (two launches) and ah93w145's F1u at 16: against the plain version
     (gap_tolerance of N, TF32 and bf16 controls outside it), every column
     bit-equal to a k = 1 launch, repeated bits; timed beside the bound, the
-    plain version and torch.matmul (TF32 off).  Returns the summary over one
-    ys930 ensemble step."""
+    plain version and torch.matmul (TF32 off); with the planner's launch
+    shape and the bytes of x staged.  Returns the summary over one ys930
+    ensemble step."""
     from meshdqn_tpu_torch.ops import matvec as mv
 
     ys, ah = meshes[PACKS[0]], meshes[PACKS[1]]
@@ -707,10 +712,17 @@ def check_cols(cuda, meshes, mem_peak, flop_peak, flush):
             if not min(controls.values()) > tol:
                 raise AssertionError(f"matvec_cols {key}: a control passes the check: "
                                      f"{controls}")
+            # The planner's launch shape (the first launch's where k > COLS_MAX)
+            # and the bytes of x every launch stages into shared memory.
+            kcs = [min(mv.COLS_MAX, k - c0) for c0 in range(0, k, mv.COLS_MAX)]
+            plan = mv.plan_cols(R, N, kcs[0])
             row = {
                 "phase": "kernels", "kernel": "matvec_cols", "pack": pack, "op": op,
                 "R": R, "N": N, "k": k, "launches_per_call": launches,
-                "window": mv.column_window(N, min(k, mv.COLS_MAX)),
+                "rows_per_warp": plan.rows_per_warp, "rows_per_block": plan.tile,
+                "head_classes": plan.classes, "window": plan.window,
+                "x_staged_MB": sum(mv.plan_cols(R, N, kc).staged_bytes(R, N, kc)
+                                   for kc in kcs) / 1e6,
                 "rel_gap": gap, "tol": tol, **controls, "bits_equal_k1_launches": True,
                 "max_abs_err": (y - yp).abs().max().item(),
                 "kernel_ms": time_ms(lambda: mv.matvec(M, X), flush),

@@ -79,25 +79,41 @@
 //
 // The k-column form (matvec_cols_f32) replaces matvec_pallas for k > 2 (the
 // ensemble's products, meshdqn_tpu/solver/ensemble.py, have B or 2B
-// columns).  k = 16 columns of 6644 rows need 425 KB, more than a block's
-// 227 KB, so x is staged in windows: W columns of M (a multiple of 128, from
-// the caller: ops/matvec.py column_window) plus 4, for all k columns at once,
-// each column contiguous and 16-byte aligned; a block walks the windows in
-// order.  Float4 v of a row (columns head + 4v .. + 3) belongs to window
-// 4v / W, whose staged columns cover it at any head offset; the head's
-// columns lie in window 0 and the tail's in a window no earlier than the
-// last float4's, after it.  So each lane keeps the single form's sequence
-// per column (head, float4s l, l + 32, ..., tail, by fmaf, then the xor
-// tree), and every column of y equals a k = 1 launch on that column bit for
-// bit.  A launch holds up to 32 columns in registers (32 accumulators a
-// lane); ops/matvec.py splits a larger k into launches of up to 32 columns,
-// and each launch re-reads M.  Bound: bytes up to k of about 40 columns
-// (66.9 TFLOP/s against 3.35 TB/s), then f32 FMAs.  Each x float4 read from
-// shared memory feeds 4 FMAs, so at k = 16 a block reads 16 bytes of shared
-// memory per matrix byte: the shared-memory bandwidth, not device memory,
-// is what a faster version would have to relieve (two rows a warp sharing
-// each x read, which rows r and r + 4 allow: their heads are equal).
-//
+// columns).  Bound: bytes up to k of about 40 columns (66.9 TFLOP/s of f32
+// FMA against 3.35 TB/s), then f32 FMAs.  At k = 16 a row's FMAs already
+// take 40% of the card's FMA rate at the bytes' bound, so the x reads from
+// shared memory, the staging of x and the registers decide the time:
+//   * Rows that share each x read: a warp sums RW rows (4, or 1 below 8
+//     rows an SM), so one 16-byte read of x from shared memory feeds 4 RW
+//     FMAs: 4 shared bytes per matrix byte at k = 16, where one row a warp
+//     read 16.  RW * KB accumulators a lane: 64 at 16 columns (128
+//     registers a thread, 16 warps an SM), 128 at 32 (8 warps).
+//   * One head class a block: rows r and r + classes start at the same
+//     offset from a 16-byte boundary (classes = 1, 2 or 4 as N % 4 is 0, 2
+//     or odd).  A block takes rows of one class and stages x at its head's
+//     shift h: position p of a window at s0 is M's column h + s0 + p, so
+//     every float4 of every row meets x at aligned positions, with no
+//     second read for a head.  X's h <= 3 head rows are staged once.
+//   * One block an SM: ops/matvec.py plan_cols spreads the rows over the
+//     132 SMs (about R / 132 rows a block), so each window of x is staged
+//     once for all of an SM's rows.
+//   * Windows of W positions (a multiple of 128), three buffers: window
+//     w + 2 is copied while window w is summed, one barrier a window, and
+//     each lane keeps the next D float4s of each row in flight across
+//     window edges, so the matrix stream does not stop at a barrier.
+//   * Window layout: X's row at position p as KB / 4 chunks of 4 columns,
+//     padded to KB / 4 + 1 float4s and the chunks swizzled, so the lanes of
+//     a 16-byte access phase hit distinct bank quads; X is row-major, so a
+//     window is a run of whole X rows, copied by 16-byte cp.async (one
+//     4-byte copy a value where X's rows are not 16-byte aligned).
+// Order: lane l takes, per column, the head (lane < h), the row's float4s
+// v = l, l + 32, ... in order across windows, each position by position,
+// then the tail (in the last window), all by fmaf, then the xor tree: the
+// single form's sequence, so every column of y equals a k = 1 launch on
+// that column bit for bit, whatever the launch shape.  A launch holds up to
+// 32 columns; ops/matvec.py splits a larger k into launches of up to 32,
+// each re-reading M.
+
 // The batched grouped form (group_batched_kernel) runs the grouped form's
 // code on member blockIdx.y's operands, each pointer moved by the member's
 // stride where it is used (the launch's parameters stay in their constant
@@ -930,8 +946,8 @@ __host__ void velocity_strides(Group& g, int ns, int np) {
 
 // ---------------------------------------------------------------------------
 // The k-column form: y = M X, X (N, k) row-major with k up to kColsMax
-// columns a launch, staged in windows of W columns of M (see the note at the
-// top of the file).
+// columns a launch, x staged in windows (see the note at the top of the
+// file).  ops/matvec.py plan_cols chooses the launch shape.
 // ---------------------------------------------------------------------------
 
 constexpr int kColsMax = 32;
@@ -944,164 +960,291 @@ struct Cols {
   int N;
   int k;
   int ld;
-  int W;  // window width, a multiple of 128 columns of M
+  int W;        // window: positions (columns of M past the head) staged at
+                // once, a multiple of 128 (a lane's steps of 32 float4s)
+  int warps;    // warps a block; its tile is warps * RW rows of one class
+  int classes;  // rows r and r + classes share their head (classes * N % 4 == 0)
+  int vec;      // X's rows are 16-byte aligned and k % 4 == 0: 16-byte copies
   int smem_bytes;
 };
 
-// acc[j] += the float4 m times X's column j at the same columns, for the
-// window's float4 i (window-relative; the row's columns head + 4v .. + 3).
-// Slot j holds column j of X's window rows, 16-byte aligned, ws apart.
-template <int KB, int H>
-__device__ __forceinline__ void fma4_cols(const float4& m, int i, int k, int ws,
-                                          float* acc) {
+// Window layout in shared memory: position p (M's column h + s0 + p for a
+// window at s0) holds X's row as KB / 4 chunks of 4 columns, chunk q at
+// float4 p (KB / 4 + 1) + (q ^ swizzle(p)), swizzle(p) = (p / 8) % 4 (% 2 at
+// KB = 8).  A lane reads positions 4v' .. 4v' + 3, lanes on consecutive v':
+// the odd row stride and the swizzle put the 8 lanes of a 16-byte access
+// phase in 8 distinct bank quads (4 at KB = 8, two chunks a row).
+template <int KB>
+__device__ __forceinline__ int chunk_swizzle(int p) {
+  return (p >> 3) & (KB >= 16 ? 3 : 1);
+}
+
+template <int KB>
+__device__ __forceinline__ int chunk_at(int p, int q) {
+  return p * (KB / 4 + 1) + (q ^ chunk_swizzle<KB>(p));
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// Positions [0, n) of a window from X's rows src0 .. src0 + n - 1 into buf:
+// 16-byte copies of 4 columns where X allows, else one copy a value.
+template <int KB>
+__device__ __forceinline__ void stage_window(const Cols& c, float* buf, int src0, int n) {
+  constexpr int kChunks = KB / 4;
+  const int threads = c.warps * 32;
+  if (c.vec) {
+    for (int f = threadIdx.x; f < n * kChunks; f += threads) {
+      const int p = f / kChunks;
+      const int q = f % kChunks;
+      if (4 * q < c.k)
+        copy_async16(buf + 4 * chunk_at<KB>(p, q),
+                     c.x + static_cast<size_t>(src0 + p) * c.ld + 4 * q);
+    }
+  } else {
+    for (int f = threadIdx.x; f < n * KB; f += threads) {
+      const int p = f / KB;
+      const int j = f % KB;
+      if (j < c.k)
+        copy_async(buf + 4 * chunk_at<KB>(p, j >> 2) + (j & 3),
+                   c.x + static_cast<size_t>(src0 + p) * c.ld + j);
+    }
+  }
+}
+
+// X's column j at window position p.
+template <int KB>
+__device__ __forceinline__ float window_at(const float* buf, int p, int j) {
+  return buf[4 * chunk_at<KB>(p, j >> 2) + (j & 3)];
+}
+
+// acc[i][j] += the float4 m[i] of M's columns at window positions 4vl ..
+// 4vl + 3 times X's column j there, for the RW rows of a warp: position by
+// position, so each column keeps the single form's order; one 16-byte read
+// of x (4 columns of one position) feeds 4 RW FMAs.  All KB columns are
+// summed, with no branch on k that would keep the shared reads from being
+// issued ahead of their FMAs; columns k .. KB - 1 hold whatever the window
+// buffer held and are never stored.  (chunk_at, with the swizzle of the
+// 4 positions, (4 vl + e) / 8 = vl / 2, taken once.)
+template <int KB, int RW>
+__device__ __forceinline__ void fma_rows(const float4 (&m)[RW], const float4* xw, int vl,
+                                         float (&acc)[RW][KB]) {
+  constexpr int kChunks = KB / 4;
+  const int sw = chunk_swizzle<KB>(4 * vl);
+  const float4* xp = xw + 4 * vl * (kChunks + 1);
 #pragma unroll
-  for (int j = 0; j < KB; ++j) {
-    if (j < k) {
-      const float4* x4 = reinterpret_cast<const float4*>(smem_x + j * ws);
-      const float4 a = x4[i];
-      float x0, x1, x2, x3;
-      if constexpr (H == 0) {
-        x0 = a.x; x1 = a.y; x2 = a.z; x3 = a.w;
-      } else {
-        const float4 b = x4[i + 1];
-        if constexpr (H == 1) {
-          x0 = a.y; x1 = a.z; x2 = a.w; x3 = b.x;
-        } else if constexpr (H == 2) {
-          x0 = a.z; x1 = a.w; x2 = b.x; x3 = b.y;
-        } else {
-          x0 = a.w; x1 = b.x; x2 = b.y; x3 = b.z;
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const float4 a = xp[e * (kChunks + 1) + (q ^ sw)];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const float me = e == 0 ? m[i].x : e == 1 ? m[i].y : e == 2 ? m[i].z : m[i].w;
+        acc[i][4 * q] = fmaf(me, a.x, acc[i][4 * q]);
+        acc[i][4 * q + 1] = fmaf(me, a.y, acc[i][4 * q + 1]);
+        acc[i][4 * q + 2] = fmaf(me, a.z, acc[i][4 * q + 2]);
+        acc[i][4 * q + 3] = fmaf(me, a.w, acc[i][4 * q + 3]);
+      }
+    }
+  }
+}
+
+// Threads a block may have: 16 warps, whose registers (at most 128 a
+// thread) hold 4 rows of 16 columns or 1 row of 32; 8 warps where a lane
+// holds 128 accumulators (4 rows of 32 columns).
+__host__ __device__ constexpr int cols_threads(int kb, int rw) {
+  return kb * rw >= 128 ? 256 : 512;
+}
+
+// Window buffers in shared memory: window wi is staged into buffer wi % 3,
+// two windows ahead of the one being summed.
+constexpr int kColsBuffers = 3;
+
+// The block moves to window wi >= 1: wait for its copy, and once every warp
+// is also done with window wi - 1, start copying window wi + 2 into that
+// buffer.  One barrier a window.
+template <int KB>
+__device__ __forceinline__ void next_window(const Cols& c, int wi, int nwin, int h, int span) {
+  if (wi + 1 < nwin) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wi + 2 < nwin) {
+    const int s2 = (wi + 2) * c.W;
+    stage_window<KB>(c, smem_x + ((wi + 2) % kColsBuffers) * c.W * (KB + 4), h + s2,
+                     min(c.W, span - s2));
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+}
+
+// Block (t, b) takes rows b + classes * q of head class b, q in its tile
+// [t * tile, (t + 1) * tile); warp w the RW rows q = t * tile + w * RW + i.
+// KB >= c.k columns; each lane keeps D float4s of each row in flight;
+// c.warps * 32 threads and c.smem_bytes of dynamic shared memory:
+// kColsBuffers window buffers of W * (KB + 4) floats and the head's 4 * KB.
+template <int KB, int RW, int D>
+__global__ void __launch_bounds__(cols_threads(KB, RW)) cols_kernel(const Cols c) {
+  const int lane = threadIdx.x & 31;
+  const int cls = blockIdx.y;
+  const int nq = (c.R - cls + c.classes - 1) / c.classes;  // rows of the class
+  const int qw = blockIdx.x * c.warps * RW + (threadIdx.x >> 5) * RW;
+  if (blockIdx.x * c.warps * RW >= nq) return;  // the whole block: no barrier follows
+  const int nlive = max(0, min(RW, nq - qw));
+
+  // The class's head, from its first row's address: every row of the block
+  // starts at the same offset from a 16-byte boundary.
+  const float* mc = c.M + static_cast<size_t>(cls) * c.N;
+  const int h = min(
+      static_cast<int>(
+          ((16u - (static_cast<uint32_t>(reinterpret_cast<uintptr_t>(mc)) & 15u)) & 15u) >>
+          2),
+      c.N);
+  const int span = c.N - h;  // positions past the head
+  const int nvec = span >> 2;
+  const int ntail = span & 3;
+  const int nwin = max(1, (span + c.W - 1) / c.W);
+  const size_t rstride = static_cast<size_t>(c.classes) * c.N;
+  const float* m0 =
+      c.M + (static_cast<size_t>(cls) + static_cast<size_t>(qw) * c.classes) * c.N;
+  const float4* mv[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) mv[i] = reinterpret_cast<const float4*>(m0 + i * rstride + h);
+
+  // 1. The rows' head and tail scalars and first D float4s: the matrix
+  //    stream starts before x is staged.
+  float mh[RW], mt[RW];
+  float4 m[D][RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    mh[i] = mt[i] = 0.0f;
+    if (i < nlive) {
+      if (lane < h) mh[i] = load_m1(m0 + i * rstride + lane);
+      if (lane < ntail) mt[i] = load_m1(m0 + i * rstride + h + 4 * nvec + lane);
+    }
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      m[u][i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < nlive && lane + 32 * u < nvec) m[u][i] = load_m4(mv[i] + lane + 32 * u);
+    }
+  }
+
+  // 2. X's head rows and windows 0 and 1 into shared memory; window 2 once
+  //    window 0 has arrived.
+  const int wf = c.W * (KB + 4);  // floats a window buffer
+  float* const head = smem_x + kColsBuffers * wf;
+  for (int f = threadIdx.x; f < h * KB; f += c.warps * 32) {
+    const int j = f % KB;
+    if (j < c.k) copy_async(head + f, c.x + static_cast<size_t>(f / KB) * c.ld + j);
+  }
+  stage_window<KB>(c, smem_x, h, min(c.W, span));
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (nwin > 1) {
+    stage_window<KB>(c, smem_x + wf, h + c.W, min(c.W, span - c.W));
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (nwin > 2) {
+    stage_window<KB>(c, smem_x + 2 * wf, h + 2 * c.W, min(c.W, span - 2 * c.W));
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  // 3. The head, then the row's float4s v = lane, lane + 32, ... (step s
+  //    takes v = 32 s + lane), each lane D steps of each row ahead in
+  //    flight across window edges, then the tail from the last window.
+  float acc[RW][KB];
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int j = 0; j < KB; ++j) acc[i][j] = 0.0f;
+  if (nlive > 0 && lane < h) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        if (j < c.k) acc[i][j] = fmaf(mh[i], head[lane * KB + j], acc[i][j]);
+  }
+  const int steps = (nvec + 31) >> 5;
+  const int per_window = c.W >> 7;
+  int wi = 0;
+  const float* xw = smem_x;  // window wi's buffer
+  for (int s0 = 0; s0 < steps; s0 += D) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int s = s0 + u;
+      if (s < steps) {
+        if (s == (wi + 1) * per_window) {
+          next_window<KB>(c, ++wi, nwin, h, span);
+          xw = smem_x + (wi % kColsBuffers) * wf;
+        }
+        if (nlive > 0) {
+          const int v = 32 * s + lane;
+          if (v < nvec)
+            fma_rows<KB, RW>(m[u], reinterpret_cast<const float4*>(xw), v - wi * (c.W >> 2),
+                             acc);
+          const int vn = v + 32 * D;
+#pragma unroll
+          for (int i = 0; i < RW; ++i)
+            if (i < nlive && vn < nvec) m[u][i] = load_m4(mv[i] + vn);
         }
       }
-      acc[j] = fmaf(m.x, x0, acc[j]);
-      acc[j] = fmaf(m.y, x1, acc[j]);
-      acc[j] = fmaf(m.z, x2, acc[j]);
-      acc[j] = fmaf(m.w, x3, acc[j]);
     }
   }
-}
-
-// The row's float4s vb + lane, vb + lane + 32, ... below ve in one window,
-// the first batch already in m.
-template <int KB, int D, int H>
-__device__ __forceinline__ void cols_body(const Row& w, int lane, int vb, int ve, int k,
-                                          int ws, float4 (&m)[D], float* acc) {
-  const float4* mv = reinterpret_cast<const float4*>(w.m + w.head);
-  for (int b = vb;;) {
+  while (wi + 1 < nwin) next_window<KB>(c, ++wi, nwin, h, span);
+  if (nlive == 0) return;  // whole warps leave together; no barrier follows
+  if (lane < ntail) {
+    xw = smem_x + (wi % kColsBuffers) * wf;
+    const int p = 4 * nvec - wi * c.W + lane;
 #pragma unroll
-    for (int u = 0; u < D; ++u) {
-      const int v = b + lane + 32 * u;
-      if (v < ve) fma4_cols<KB, H>(m[u], v - vb, k, ws, acc);
-    }
-    b += 32 * D;
-    if (b >= ve) break;
-#pragma unroll
-    for (int u = 0; u < D; ++u) {
-      const int v = b + lane + 32 * u;
-      if (v < ve) m[u] = load_m4(mv + v);
-    }
-  }
-}
-
-// kThreads threads a block and c.smem_bytes of dynamic shared memory; warp
-// w of block b takes row b * kWarps + w, for KB >= c.k columns.
-template <int KB>
-__global__ void __launch_bounds__(kThreads) cols_kernel(const Cols c) {
-  constexpr int D = 4;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const bool live = r < c.R;
-  const int ws = c.W + 4;  // a slot's length: the window and its overhang
-  Row w = {};
-  float mh = 0.0f, mt = 0.0f;
-  int t = 0;  // this lane's tail column
-  if (live) {
-    Product p = {};
-    p.M = c.M;
-    p.N = c.N;
-    w = row_of(p, r);
-    t = w.head + 4 * w.nvec + lane;
-    if (lane < w.head) mh = load_m1(w.m + lane);
-    if (t < w.n) mt = load_m1(w.m + t);
-  }
-  float acc[KB];
-#pragma unroll
-  for (int j = 0; j < KB; ++j) acc[j] = 0.0f;
-
-  for (int c0 = 0; c0 < c.N; c0 += c.W) {
-    // 1. The window's first loads of the row.
-    const int vb = c0 >> 2;
-    const int ve = live ? min(vb + (c.W >> 2), w.nvec) : 0;
-    float4 m[D];
-    if (vb < ve) {
-      const float4* mv = reinterpret_cast<const float4*>(w.m + w.head);
-#pragma unroll
-      for (int u = 0; u < D; ++u) {
-        const int v = vb + lane + 32 * u;
-        if (v < ve) m[u] = load_m4(mv + v);
-      }
-    }
-    // 2. X's rows c0 .. c0 + ws - 1 into the slots, once every warp is done
-    //    with the previous window.
-    __syncthreads();
-    const int rows = min(ws, c.N - c0);
-    for (int f = threadIdx.x; f < rows * c.k; f += kThreads) {
-      const int i = f / c.k;
-      const int j = f - i * c.k;
-      copy_async(smem_x + j * ws + i, c.x + static_cast<size_t>(c0 + i) * c.ld + j);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    if (!live) continue;
-
-    // 3. Head (window 0), the window's float4s, then the tail if it lies
-    //    here.
-    if (c0 == 0 && lane < w.head) {
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
       for (int j = 0; j < KB; ++j)
-        if (j < c.k) acc[j] = fmaf(mh, smem_x[j * ws + lane], acc[j]);
-    }
-    if (vb < ve) {
-      switch (w.head) {
-        case 0: cols_body<KB, D, 0>(w, lane, vb, ve, c.k, ws, m, acc); break;
-        case 1: cols_body<KB, D, 1>(w, lane, vb, ve, c.k, ws, m, acc); break;
-        case 2: cols_body<KB, D, 2>(w, lane, vb, ve, c.k, ws, m, acc); break;
-        default: cols_body<KB, D, 3>(w, lane, vb, ve, c.k, ws, m, acc); break;
-      }
-    }
-    if (t < w.n && t >= c0 && t < c0 + c.W) {
-#pragma unroll
-      for (int j = 0; j < KB; ++j)
-        if (j < c.k) acc[j] = fmaf(mt, smem_x[j * ws + (t - c0)], acc[j]);
-    }
+        if (j < c.k) acc[i][j] = fmaf(mt[i], window_at<KB>(xw, p, j), acc[i][j]);
   }
-  if (!live) return;  // whole warps leave together; no barrier follows
 
-  // 4. The single form's xor tree, per column.
+  // 4. The single form's xor tree, per row and column.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-    for (int j = 0; j < KB; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < KB; ++j) acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
   }
   if (lane == 0) {
-    float* yr = c.y + static_cast<size_t>(r) * c.ld;
 #pragma unroll
-    for (int j = 0; j < KB; ++j)
-      if (j < c.k) yr[j] = acc[j];
+    for (int i = 0; i < RW; ++i) {
+      if (i < nlive) {
+        float* yr = c.y + (static_cast<size_t>(cls) +
+                           static_cast<size_t>(qw + i) * c.classes) * c.ld;
+#pragma unroll
+        for (int j = 0; j < KB; ++j)
+          if (j < c.k) yr[j] = acc[i][j];
+      }
+    }
   }
 }
 
-template <int KB>
+template <int KB, int RW, int D>
 cudaError_t launch_cols(const Cols& c, cudaStream_t stream) {
+  if (c.warps * 32 > cols_threads(KB, RW)) return cudaErrorInvalidValue;
   static int granted = 48 * 1024;
   if (c.smem_bytes > granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        cols_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_bytes);
+        cols_kernel<KB, RW, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_bytes);
     if (err != cudaSuccess) return err;
     granted = c.smem_bytes;
   }
   if (c.R == 0) return cudaSuccess;
-  cols_kernel<KB><<<(c.R + kWarps - 1) / kWarps, kThreads, c.smem_bytes, stream>>>(c);
+  const int tile = c.warps * RW;
+  const int rows = (c.R + c.classes - 1) / c.classes;  // class 0 has the most
+  const dim3 grid((rows + tile - 1) / tile, c.classes);
+  cols_kernel<KB, RW, D><<<grid, c.warps * 32, c.smem_bytes, stream>>>(c);
   return cudaGetLastError();
 }
 
@@ -1197,19 +1340,34 @@ extern "C" int step_velocity_df32(const float* F3s, const float* F3p,
 }
 
 // y[:, :k] = M x[:, :k] for x (N, ld) and y (R, ld) row-major, 1 <= k <= 32
-// columns, x staged in windows of W columns of M (W a multiple of 128).
+// columns, in the launch shape ops/matvec.py plan_cols chose: rows_per_warp
+// rows a warp, `warps` warps a block, `depth` float4s of each row in flight
+// a lane, windows of W positions (a multiple of 128).
 extern "C" int matvec_cols_f32(const float* M, const float* x, float* y, int R, int N,
-                               int k, int ld, int W, void* stream) {
-  if (k < 1 || k > kColsMax || ld < k || N < 1 || W < 128 || W % 128 != 0)
+                               int k, int ld, int W, int rows_per_warp, int warps,
+                               int depth, void* stream) {
+  if (k < 1 || k > kColsMax || ld < k || N < 1 || R < 0 || W < 128 || W % 128 != 0 ||
+      warps < 1)
     return cudaErrorInvalidValue;
-  const long long bytes = 4LL * k * (W + 4);
+  const int kb = k <= 8 ? 8 : k <= 16 ? 16 : 32;
+  const long long bytes = 4LL * (1LL * kColsBuffers * W * (kb + 4) + 4 * kb);
   if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
-  const Cols c = {M, x, y, R, N, k, ld, W, static_cast<int>(bytes)};
+  const int classes = N % 4 == 0 ? 1 : N % 2 == 0 ? 2 : 4;
+  const int vec = k % 4 == 0 && ld % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  const Cols c = {M, x, y, R, N, k, ld, W, warps, classes, vec, static_cast<int>(bytes)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 4) return launch_cols<4>(c, s);
-  if (k <= 8) return launch_cols<8>(c, s);
-  if (k <= 16) return launch_cols<16>(c, s);
-  return launch_cols<32>(c, s);
+  // DISPATCH
+  if (rows_per_warp == 4 && depth == 2) {
+    if (kb == 8) return launch_cols<8, 4, 2>(c, s);
+    if (kb == 16) return launch_cols<16, 4, 2>(c, s);
+    return launch_cols<32, 4, 2>(c, s);
+  }
+  if (rows_per_warp == 1 && depth == 8) {
+    if (kb == 8) return launch_cols<8, 1, 8>(c, s);
+    if (kb == 16) return launch_cols<16, 1, 8>(c, s);
+    return launch_cols<32, 1, 8>(c, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The batched f32 forms: every operand stacked over B members, member b's

@@ -4,10 +4,11 @@ Kernels (csrc/matvec.cu, CUDA C++ for sm_90a, bound with ctypes):
 
 * `matvec` replaces meshdqn_tpu/ops/pallas_kernels.py:matvec_pallas
   (_mv_kernel): y = m @ x, x of shape (N,) or (N, k) for any k >= 1.  k <= 2
-  is the single form, x staged whole; k > 2 the k-column form, x staged in
-  windows of `column_window(N, k)` columns of m, up to `COLS_MAX` columns a
-  launch (a larger k takes several launches, each re-reading m).  Every
-  column of y equals a k = 1 launch on that column bit for bit.
+  is the single form, x staged whole; k > 2 the k-column form, up to
+  `COLS_MAX` columns a launch (a larger k takes several launches, each
+  re-reading m), in the launch shape `plan_cols` chooses: rows a warp,
+  rows a block, x staged in windows of `column_window(N, k)` positions.
+  Every column of y equals a k = 1 launch on that column bit for bit.
 * `step_ustar`, `step_pressure`, `step_velocity`: the same kernel in its
   grouped form, the fused step's seven products and the elementwise work
   around them in three launches (solver/fused.py).  Each equals its plain
@@ -50,6 +51,8 @@ On the card a kernel is held to its plain version by
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import weakref
 
 import torch
@@ -58,10 +61,16 @@ from . import build
 
 # Largest dynamic shared memory a block may use on sm_90 (csrc/matvec.cu).
 MAX_SMEM_BYTES = 232448
-# The k-column form: columns a launch, and the shared memory a block's
-# window of x may take (two blocks an SM).
+# The k-column form (csrc/matvec.cu cols_kernel; `plan_cols`): columns a
+# launch; the shared memory a block may take; window buffers; the widest
+# window; the quantum a window is a multiple of (a lane's step: 32 float4s
+# of 4 columns); the H100's SMs, over which the planner spreads the rows.
 COLS_MAX = 32
-COLS_SMEM_BYTES = 96 * 1024
+COLS_SMEM_BYTES = MAX_SMEM_BYTES
+COLS_BUFFERS = 3
+COLS_WINDOW_MAX = 512
+COLS_QUANTUM = 128
+COLS_SMS = 132
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -85,7 +94,7 @@ def _lib():
         lib.step_ustar_df32.argtypes = [_c_void_p] * 13 + [_c_int] * 2 + [_c_void_p]
         lib.step_pressure_df32.argtypes = [_c_void_p] * 10 + [_c_int] * 2 + [_c_void_p]
         lib.step_velocity_df32.argtypes = [_c_void_p] * 9 + [_c_int] * 2 + [_c_void_p]
-        lib.matvec_cols_f32.argtypes = [_c_void_p] * 3 + [_c_int] * 5 + [_c_void_p]
+        lib.matvec_cols_f32.argtypes = [_c_void_p] * 3 + [_c_int] * 8 + [_c_void_p]
         lib.step_ustar_batched_f32.argtypes = [_c_void_p] * 9 + [_c_int] * 3 + [_c_void_p]
         lib.step_pressure_batched_f32.argtypes = ([_c_void_p] * 7 + [_c_int] * 3
                                                   + [_c_void_p])
@@ -174,11 +183,87 @@ def _check_current_device(device: torch.device) -> None:
 
 
 def column_window(n: int, k: int) -> int:
-    """The k-column form's window: the columns of m (a multiple of 128) whose
-    rows of x a block stages at once for k <= COLS_MAX columns, 4 k (W + 4)
-    bytes within COLS_SMEM_BYTES, and no wider than n needs."""
-    w = (COLS_SMEM_BYTES // (4 * k) - 4) // 128 * 128
-    return min(w, -(-n // 128) * 128)
+    """The k-column form's window for k <= COLS_MAX columns: the positions
+    (columns of m past a row's head) a block stages at once, a multiple of
+    COLS_QUANTUM, up to COLS_WINDOW_MAX, the buffers and the head within
+    COLS_SMEM_BYTES, and no wider than n needs."""
+    kb = _cols_kb(k)
+    fit = (COLS_SMEM_BYTES // 4 - 4 * kb) // (COLS_BUFFERS * (kb + 4))
+    w = min(COLS_WINDOW_MAX, fit // COLS_QUANTUM * COLS_QUANTUM)
+    return max(COLS_QUANTUM, min(w, -(-n // COLS_QUANTUM) * COLS_QUANTUM))
+
+
+def _cols_kb(k: int) -> int:
+    """Columns of the kernel instance that takes k columns."""
+    return 8 if k <= 8 else 16 if k <= 16 else 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ColsPlan:
+    """A k-column launch's shape (csrc/matvec.cu cols_kernel).  Block (t, b)
+    takes rows b + classes * q of head class b for q in [t * tile, (t + 1) *
+    tile); warp w the rows_per_warp rows q = t * tile + w * rows_per_warp +
+    i.  Rows r and r + classes start at the same offset from a 16-byte
+    boundary, so a block's rows share their head and it stages x once at
+    that shift.  The kernel derives `classes` and `smem_bytes` as here."""
+
+    kb: int  # columns of the kernel instance (8, 16 or 32)
+    rows_per_warp: int
+    warps: int
+    depth: int  # float4s of each row a lane keeps in flight
+    classes: int
+    window: int
+    buffers: int  # window buffers in shared memory
+    smem_bytes: int
+
+    @property
+    def tile(self) -> int:
+        return self.warps * self.rows_per_warp
+
+    def grid(self, R: int) -> tuple[int, int]:
+        """Blocks: (tiles of the largest class, classes)."""
+        per_class = -(-R // self.classes)
+        return -(-per_class // self.tile), self.classes
+
+    def rows(self, R: int, t: int, b: int, w: int) -> list[int]:
+        """The rows warp w of block (t, b) sums, in its order."""
+        q0 = t * self.tile + w * self.rows_per_warp
+        rows = [b + self.classes * q for q in range(q0, q0 + self.rows_per_warp)]
+        return [r for r in rows if r < R]
+
+    def staged_bytes(self, R: int, N: int, k: int) -> int:
+        """Bytes of x a launch copies into shared memory: all N rows of its k
+        columns once per block that has rows."""
+        rows = [max(0, -(-(R - b) // self.classes)) for b in range(self.classes)]
+        return 4 * N * k * sum(-(-n // self.tile) for n in rows)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_cols(R: int, N: int, k: int) -> ColsPlan:
+    """The launch shape of the k-column form for M (R, N) and k <= COLS_MAX
+    columns.  The rows are spread over the card's SMs, one block an SM, so
+    each window of x is staged once for an SM's rows: a tile of about
+    R / COLS_SMS rows of one head class.  From 8 rows a block up, 4 rows a
+    warp share each x read and each lane keeps 2 float4s of each row in
+    flight; below, 1 row a warp keeps 8 in flight, as its few rows must
+    still fill the memory pipe.  Up to 16 warps a block (8 where a lane
+    holds 128 accumulators: 4 rows of 32 columns).  `column_window` for the
+    window.  Chosen on the H100 against 1, 2, 4 or 8 rows a warp, 1 to 8
+    float4s in flight, 4 to 16 warps and windows of 256 to 768 at the
+    ensemble's products (`PERF.md`)."""
+    if not 1 <= k <= COLS_MAX or N < 1 or R < 0:
+        raise ValueError(f"no k-column launch for R = {R}, N = {N}, k = {k}")
+    kb = _cols_kb(k)
+    classes = 1 if N % 4 == 0 else 2 if N % 2 == 0 else 4
+    per_class = -(-R // classes)
+    tile = -(-per_class // (COLS_SMS // classes))  # rows a block
+    rw, depth = (4, 2) if tile >= 8 else (1, 8)
+    max_warps = 8 if kb * rw == 128 else 16
+    warps = max(1, min(max_warps, -(-tile // rw)))
+    window = column_window(N, k)
+    return ColsPlan(kb=kb, rows_per_warp=rw, warps=warps, depth=depth, classes=classes,
+                    window=window, buffers=COLS_BUFFERS,
+                    smem_bytes=4 * (COLS_BUFFERS * window * (kb + 4) + 4 * kb))
 
 
 def _check(m: torch.Tensor, xs, max_k: int | None = 2) -> tuple[int, int, int]:
@@ -237,9 +322,11 @@ def matvec(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y
     for c0 in range(0, k, COLS_MAX):
         kc = min(COLS_MAX, k - c0)
+        plan = plan_cols(R, N, kc)
         err = _lib().matvec_cols_f32(m.data_ptr(), x.data_ptr() + 4 * c0,
-                                     y.data_ptr() + 4 * c0, R, N, kc, k,
-                                     column_window(N, kc), _stream(m))
+                                     y.data_ptr() + 4 * c0, R, N, kc, k, plan.window,
+                                     plan.rows_per_warp, plan.warps, plan.depth,
+                                     _stream(m))
         _raise_on(err, "matvec_cols_f32")
         matvec.launches += 1
     return y

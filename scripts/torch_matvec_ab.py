@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused step's dense products and its 5000-step solve on one GPU,
-for the PyTorch/CUDA port of a given checkout, with chip_smoke.py's timer.
+"""Time the fused step's dense products, the ensemble step's k-column
+products and their 5000-step solves on one GPU, for the PyTorch/CUDA port
+of a given checkout, with chip_smoke.py's timer.
 
     python3 scripts/torch_matvec_ab.py [--root DIR] [--label NAME]
         [--steps N] [--out FILE] [--against FILE ...]
@@ -23,7 +24,15 @@ in one call are timed alike.  For each of the two airfoil packs it reports:
   device ms/step (CUDA events), host ms/step, the launch counters, and the
   snapshot drag and lift as exact floats (float.hex);
 * 50 steps under torch.profiler (chip_smoke.profile_steps): device ops and
-  device busy ms per step.
+  device busy ms per step;
+* the k-column form at the ensemble step's products (chip_smoke.cols_shapes,
+  16 members, F3s at 32 columns), on seeded inputs: the kernel's time,
+  torch.matmul's and a digest of y.
+
+and, on the ys930 pack, the 16-member ensemble (EnsembleFlows, chip_smoke's
+amplitudes) from rest: device and host ms/step, the k-column launches, every
+member's snapshot drag and lift as float.hex, and 50 profiled steps' device
+busy ms, device ops and k-column kernel ms per step.
 
 Prints one JSON line (and writes it to --out).  --against names earlier
 outputs of this script: every digest and every snapshot drag and lift that
@@ -92,6 +101,56 @@ def grouped(torch, cs, mv, cuda, ns, npr, flush):
     return out
 
 
+def cols(torch, cs, mv, cuda, ns, npr, flush):
+    """The ensemble step's k-column products (chip_smoke.cols_shapes)."""
+    out = {}
+    for op, R, N, k in cs.cols_shapes(ns, npr):
+        key = f"{R}x{N}x{k}"
+        if key in out:
+            out[key]["ops"].append(op)
+            continue
+        M = seeded(torch, cuda, R * 131 + N * 7 + k, (R, N))
+        X = seeded(torch, cuda, R + N + k, (N, k))
+        out[key] = {"ops": [op], "digest": digest(mv.matvec(M, X)),
+                    "ms": cs.time_ms(lambda: mv.matvec(M, X), flush),
+                    "matmul_ms": cs.time_ms(lambda: torch.matmul(M, X), flush),
+                    "bound_ms": 4 * (R * N + N * k + R * k) / 3.35e12 * 1e3}
+        del M, X
+    return out
+
+
+def ensemble(torch, cs, mv, steps, label):
+    """The ys930 ensemble from rest, snapshots every 1000 steps."""
+    from meshdqn_tpu_torch.solver.ensemble import EnsembleFlows
+
+    mesh, _, meta = cs.load_pack(cs.PACKS[0])
+    ens = EnsembleFlows(mesh, list(cs.ENS_AMPS), cs.pack_config(meta, precision="f32"))
+    state = ens.initial_state()
+    save = min(1000, steps)
+    mv.matvec.launches = 0
+    drags, lifts = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps // save):
+        state, d, l = ens.evolve(state, save)
+        drags.append(d[:, -1])
+        lifts.append(l[:, -1])
+    end.record()
+    torch.cuda.synchronize()
+    row = {"ms_per_step": start.elapsed_time(end) / steps,
+           "host_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+           "launches": mv.matvec.launches,
+           "snap_drags": [[float(x).hex() for x in d.tolist()] for d in drags],
+           "snap_lifts": [[float(x).hex() for x in l.tolist()] for l in lifts]}
+    prof = cs.profile_steps(ens, state, path=f"ensemble {label}")
+    row.update(device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+               device_ops_per_step=prof["device_ops_per_step"],
+               cols_kernel_ms_per_step=prof["port_kernels_ms_per_step"]["cols_kernel"])
+    return row
+
+
 def counters(mv):
     return {k: getattr(mv, k).launches for k in
             ("matvec", "step_ustar", "step_pressure", "step_velocity") if hasattr(mv, k)}
@@ -138,6 +197,8 @@ def compare(mine: dict, other: dict) -> list:
             diffs.append("/".join(path))
 
     walk(mine["packs"], other["packs"], [])
+    if "ensemble" in mine and "ensemble" in other:
+        walk(mine["ensemble"], other["ensemble"], ["ensemble"])
     return diffs
 
 
@@ -180,11 +241,16 @@ def main(argv=None) -> int:
         if hasattr(mv, "step_ustar"):
             pack["grouped"] = grouped(torch, cs, mv, cuda, ns, npr, flush)
             pack["grouped_step_ms"] = sum(g["ms"] for g in pack["grouped"].values())
+        pack["cols"] = cols(torch, cs, mv, cuda, ns, npr, flush)
+        colsv = pack["cols"].values()
+        for key in ("ms", "matmul_ms", "bound_ms"):
+            pack[f"cols_step_{key}"] = sum(len(c["ops"]) * c[key] for c in colsv)
         solver, state, pack["solve"] = solve(torch, cs, mv, cuda, name, args.steps)
         if name == cs.PACKS[0]:
             cs.profile_steps(solver, state, path=f"fused {args.label or root}")
         del solver, state
         result["packs"][name] = pack
+    result["ensemble"] = ensemble(torch, cs, mv, args.steps, args.label or root)
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

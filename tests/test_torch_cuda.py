@@ -218,6 +218,57 @@ def test_k_columns_from_shifted_storage(cuda):
     assert torch.equal(mv.matvec(M, X), ones)
 
 
+def _k_column_checks(M, X):
+    """matvec(M, X) equals, column by column, a k = 1 launch on that column,
+    repeats its bits, and lies within gap_tolerance of the plain version,
+    while the plain version on TF32- and bf16-rounded inputs does not."""
+    N, k = X.shape
+    before = mv.matvec.launches
+    y = mv.matvec(M, X)
+    assert mv.matvec.launches == before + -(-k // mv.COLS_MAX)
+    assert y.shape == (M.shape[0], k) and torch.equal(y, mv.matvec(M, X))
+    ones = torch.stack([mv.matvec(M, X[:, j].contiguous()) for j in range(k)], dim=1)
+    assert torch.equal(y, ones)
+    tol = mv.gap_tolerance(N)
+    yp = mv.matvec_reference(M, X)
+    assert mv.relative_gap(y, yp) <= tol
+    for bits in (10, 7):
+        rounded = mv.matvec_reference(mv.round_mantissa(M, bits), mv.round_mantissa(X, bits))
+        assert mv.relative_gap(rounded, yp) > tol
+
+
+def _offset_matrix(cuda, R, N, offset, g):
+    """A seeded (R, N) matrix stored `offset` floats past a 16-byte boundary:
+    its rows' heads move with the offset."""
+    M = torch.empty(R * N + offset, device=cuda)[offset:].view(R, N)
+    return M.copy_(torch.randn(R, N, generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("k", [3, 16, 17, 32])
+@pytest.mark.parametrize("N", [1028, 1029, 1030, 1031])
+def test_k_column_schedule_at_every_head_and_offset(cuda, N, k, offset):
+    """The launch shape of ops/matvec.py plan_cols at every N % 4 (head
+    classes 1, 4, 2, 4), the kernel instances' column counts and either side
+    of them, M off a 16-byte boundary, and 301 rows (no multiple of a tile)."""
+    g = torch.Generator(device="cpu").manual_seed(N * 7 + k + offset)
+    _k_column_checks(_offset_matrix(cuda, 301, N, offset, g),
+                     torch.randn(N, k, generator=g).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,k,offset", [(301, 1030, 40, 0), (37, 1031, 35, 3),
+                                          (6644, 6644, 40, 1), (5, 7, 67, 2)])
+def test_k_column_launch_splits_read_rows_ld_apart(cuda, R, N, k, offset):
+    """Past COLS_MAX columns a launch reads x and writes y at a row stride
+    ld = k above its own columns, from a column offset that is not a
+    multiple of 4 floats where k is not."""
+    g = torch.Generator(device="cpu").manual_seed(R + N + k)
+    _k_column_checks(_offset_matrix(cuda, R, N, offset, g),
+                     torch.randn(N, k, generator=g).to(cuda))
+
+
 BATCH_SIZES = [(3322, 876, 5), (3025, 797, 3), (5, 33, 4), (33, 7, 2), (438, 1, 1)]
 
 
