@@ -734,8 +734,7 @@ def profile_steps(solver, state, path, n=50):
             for k in ("group_kernel", "group_batched_kernel", "cols_kernel",
                       "banded_tiles_kernel", "ell_kernel")}
     # device_busy_share is measured in the profiled window, where the
-    # profiler also slows the host; busy over the unprofiled wall time of
-    # the same steps, just before, is an estimate across two windows.
+    # profiler also slows the host.
     unprofiled_ms = start.elapsed_time(end)
     row = {"phase": "profile", "path": path, "steps": n, "wall_ms_per_step": wall_ms / n,
            "unprofiled_wall_ms_per_step": unprofiled_ms / n,
@@ -743,7 +742,6 @@ def profile_steps(solver, state, path, n=50):
            "device_busy_ms_per_step": busy / n if busy else None,
            "device_ops_per_step": kernels / n,
            "device_busy_share": busy / wall_ms if busy else None,
-           "busy_over_unprofiled_wall": busy / unprofiled_ms if busy else None,
            "port_kernels_ms_per_step": ours,
            "top_ms_per_step": {k: v / n for k, v in top}}
     emit(row)

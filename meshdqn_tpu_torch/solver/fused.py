@@ -29,6 +29,7 @@ launches of the kernel's split form (ops.matvec.step_*_df32).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +43,7 @@ from ..ops.matvec import (
     step_ustar_reference, step_velocity, step_velocity_df32,
     step_velocity_df32_reference, step_velocity_reference,
 )
+from ..utils.profiling import tracing
 
 
 class FlowState(NamedTuple):
@@ -200,23 +202,39 @@ def fused_step(dev: FusedOperators, state: FlowState, apply=None):
     expressions with every dense product through `apply`: ops.matvec.matvec
     for seven single launches, which the grouped launches equal bit for bit,
     or its plain version ops.matvec.matvec_reference for an f64 step on the
-    card, which the f32-only kernel does not take."""
-    u_n, p_n = state
-    c = dev.conv(u_n)
-    if apply is None:
-        u_star = step_ustar(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1, u_n, p_n, c)
-        p_new, dp = step_pressure(dev.F2p, dev.F2u, dev.k2, p_n, u_star)
-        u_new = step_velocity(dev.F3s, dev.F3p, dev.k3, u_star, dp)
-    else:
-        u_star = step_ustar_reference(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1,
-                                      u_n, p_n, c, apply=apply)
-        p_new, dp = step_pressure_reference(dev.F2p, dev.F2u, dev.k2, p_n, u_star,
-                                            apply=apply)
-        u_new = step_velocity_reference(dev.F3s, dev.F3p, dev.k3, u_star, dp,
-                                        apply=apply)
+    card, which the f32-only kernel does not take.
 
+    With tracing on (utils.profiling) each phase is a span: step.convection,
+    step.ustar, step.pressure, step.velocity (each launch with its wrapper)
+    and step.probes; with it off the step's only added work is a call to
+    `tracing()` and six tests of its result."""
+    u_n, p_n = state
+    if apply is None:
+        ustar, pressure, velocity = step_ustar, step_pressure, step_velocity
+    else:
+        ustar, pressure, velocity = (
+            partial(f, apply=apply) for f in (step_ustar_reference,
+                                              step_pressure_reference,
+                                              step_velocity_reference))
+    tr = tracing()
+    if tr:
+        tr.begin("step.convection")
+    c = dev.conv(u_n)
+    if tr:
+        tr.next("step.ustar")
+    u_star = ustar(dev.F1u, dev.F1p, dev.A1Z, dev.rho, dev.k1, u_n, p_n, c)
+    if tr:
+        tr.next("step.pressure")
+    p_new, dp = pressure(dev.F2p, dev.F2u, dev.k2, p_n, u_star)
+    if tr:
+        tr.next("step.velocity")
+    u_new = velocity(dev.F3s, dev.F3p, dev.k3, u_star, dp)
+    if tr:
+        tr.next("step.probes")
     drag = dev.drag_u @ u_new + dev.drag_p @ p_new
     lift = dev.lift_u @ u_new + dev.lift_p @ p_new
+    if tr:
+        tr.end()
     return FlowState(u=u_new, p=p_new), (drag, lift)
 
 

@@ -46,6 +46,7 @@ from ..ops.convection import ConvectionKernel
 from ..ops.sparse import EllMatrix
 from ..ops.matvec import matvec
 from ..probes import drag_probe, lift_probe
+from ..utils.profiling import count, span, tracing
 from .fused import FlowState, _dense64, compose_fused, fused_step, fused_step_df32
 
 __all__ = ["BandedCGOperators", "CGOperators", "DeviceOperators", "FlowState",
@@ -379,11 +380,12 @@ def ipcs_step(dev: DeviceOperators, state: FlowState, precision: str,
 def _loop(step, state, n_steps: int, dtype, device, members: tuple = ()):
     """n_steps of step(state) -> (state, (drag, lift)); drag and lift land in
     preallocated device tensors (n_steps, *members), so the loop never waits
-    for the device."""
+    for the device.  Counts its steps as `steps` while tracing is on."""
     drags = torch.empty((n_steps, *members), dtype=dtype, device=device)
     lifts = torch.empty_like(drags)
     for i in range(n_steps):
         state, (drags[i], lifts[i]) = step(state)
+    count("steps", n_steps)
     return state, (drags, lifts)
 
 
@@ -743,9 +745,10 @@ class IPCSSolver:
             raise ValueError(f"unknown method {cfg.method!r}")
         self.device = resolve_device(device)
 
-        self.markers, self.operators = assembled = assemble(mesh, cfg)
-        self.drag = drag_probe(mesh, self.markers, cfg.mu)
-        self.lift = lift_probe(mesh, self.markers, cfg.mu)
+        with span("setup.assemble"):
+            self.markers, self.operators = assembled = assemble(mesh, cfg)
+            self.drag = drag_probe(mesh, self.markers, cfg.mu)
+            self.lift = lift_probe(mesh, self.markers, cfg.mu)
         # The reference's `removable` (flow_solver.py:75-78) with its
         # broadcasting bug fixed, as the JAX package has it: a vertex is
         # removable iff it is not on the boundary.
@@ -763,10 +766,14 @@ class IPCSSolver:
             self.reset_warm_start()
         elif self.fused:
             self.work_dtype = self.pressure_dtype = torch.float32
-            built, self.ndofs_u, self.ndofs_p, self._pad = build_fused_operators(
-                mesh, cfg, device=self.device, dtype=torch.float32,
-                split=cfg.precision == "df32", assembled=assembled,
-            )
+            with span("setup.compose"):
+                built, self.ndofs_u, self.ndofs_p, self._pad = build_fused_operators(
+                    mesh, cfg, device=self.device, dtype=torch.float32,
+                    split=cfg.precision == "df32", assembled=assembled,
+                )
+                if tracing() and self.device.type == "cuda":
+                    # The span holds the card's part of the composition.
+                    torch.cuda.synchronize(self.device)
             if cfg.precision == "df32":
                 self.dev, self.dev_lo = built
             else:
@@ -815,21 +822,23 @@ class IPCSSolver:
 
         A plain Python loop of steps that never waits for the device: drag
         and lift land in preallocated device tensors.  The CG method carries
-        its warm start across calls."""
+        its warm start across calls.  While tracing is on the call is one
+        `evolve` span, the root of its steps' spans."""
         cfg = self.config
-        if cfg.method == "cg":
-            state, self._cg_ustar, (drags, lifts) = evolve_cg_n(
-                self.dev, state, self._cg_ustar, n_steps, cfg.cg_iters_u,
-                cfg.cg_iters_m, cfg.cg_pressure_refine,
-            )
-        elif self.dev_lo is not None:
-            state, (drags, lifts) = evolve_fused_df32_n(self.dev, self.dev_lo, state,
-                                                        n_steps)
-        elif self.fused:
-            state, (drags, lifts) = evolve_fused_n(self.dev, state, n_steps)
-        else:
-            state, (drags, lifts) = evolve_n(self.dev, state, n_steps, cfg.precision,
-                                             cfg.refine_iters)
+        with span("evolve"):
+            if cfg.method == "cg":
+                state, self._cg_ustar, (drags, lifts) = evolve_cg_n(
+                    self.dev, state, self._cg_ustar, n_steps, cfg.cg_iters_u,
+                    cfg.cg_iters_m, cfg.cg_pressure_refine,
+                )
+            elif self.dev_lo is not None:
+                state, (drags, lifts) = evolve_fused_df32_n(self.dev, self.dev_lo,
+                                                            state, n_steps)
+            elif self.fused:
+                state, (drags, lifts) = evolve_fused_n(self.dev, state, n_steps)
+            else:
+                state, (drags, lifts) = evolve_n(self.dev, state, n_steps,
+                                                 cfg.precision, cfg.refine_iters)
         return state, drags, lifts
 
     def solve(

@@ -6,7 +6,16 @@ from .config import (
     OptimizerConfig,
 )
 from .jsonlog import JsonLogger, read_jsonl
-from .profiling import device_busy
+from .profiling import (
+    Span,
+    count,
+    device_busy,
+    span,
+    take_trace,
+    trace_off,
+    trace_on,
+    tracing,
+)
 
 __all__ = [
     "AgentConfig",
@@ -15,6 +24,13 @@ __all__ = [
     "FlowConfig",
     "JsonLogger",
     "OptimizerConfig",
+    "Span",
+    "count",
     "device_busy",
     "read_jsonl",
+    "span",
+    "take_trace",
+    "trace_off",
+    "trace_on",
+    "tracing",
 ]

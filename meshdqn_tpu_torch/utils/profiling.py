@@ -1,6 +1,23 @@
-"""Device time of a piece of work, from torch.profiler's kernel records, and
-the bytes a solver's step reads."""
+"""Device time of a piece of work, from torch.profiler's kernel records, the
+bytes a solver's step reads, and the program's own spans and counters.
+
+The tracer: with tracing on (`trace_on`), `span(name)` keeps (name, parent,
+start_ns, end_ns) in memory on `time.perf_counter_ns`'s clock, and
+`count(name, n)` adds to a counter; `take_trace` hands both over and clears
+them.  With `annotate`, each span also enters
+`torch.profiler.record_function("meshdqn:" + name)`, so it lands in a
+profiler's trace as an annotation on the device events' clock.  With
+tracing off nothing is read or kept: the solver's hot loops test
+`tracing()` once a step or a call, and `span` returns a shared null
+context.  The tracer is one per process, as the profiler is.
+"""
 from __future__ import annotations
+
+from contextlib import contextmanager, nullcontext
+from time import perf_counter_ns
+from typing import NamedTuple
+
+from torch.profiler import record_function
 
 
 def device_busy(fn):
@@ -74,3 +91,103 @@ def cg_step_bytes(dev, cfg) -> tuple[int, int]:
                                                    "drag_u", "drag_p", "lift_u",
                                                    "lift_p", "vert_pos"))
     return ops, ops + rest
+
+
+class Span(NamedTuple):
+    name: str
+    parent: int  # index of the enclosing span in the same list, -1 for a root
+    start_ns: int
+    end_ns: int
+
+
+class Tracer:
+    """Spans and counters kept in memory while `on`; see the module's
+    docstring.  Spans nest on one thread: `begin` opens a span inside the
+    innermost open one, `end` closes the innermost, `next` closes it and
+    opens a sibling."""
+
+    def __init__(self):
+        self.on = False
+        self.annotate = False
+        self.spans = []  # [name, parent, start_ns, end_ns]
+        self.counts = {}
+        # The open spans, innermost last: (index, record_function scope or
+        # None).
+        self._open = []
+
+    def begin(self, name: str) -> None:
+        mark = None
+        if self.annotate:
+            mark = record_function("meshdqn:" + name)
+            mark.__enter__()
+        self.spans.append([name, self._open[-1][0] if self._open else -1,
+                           perf_counter_ns(), None])
+        self._open.append((len(self.spans) - 1, mark))
+
+    def end(self) -> None:
+        i, mark = self._open.pop()
+        self.spans[i][3] = perf_counter_ns()
+        if mark is not None:
+            mark.__exit__(None, None, None)
+
+    def next(self, name: str) -> None:
+        self.end()
+        self.begin(name)
+
+    @contextmanager
+    def span(self, name: str):
+        depth = len(self._open)
+        self.begin(name)
+        try:
+            yield
+        finally:
+            # Also closes what an exception left open inside it.
+            while len(self._open) > depth:
+                self.end()
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
+
+    def take(self) -> tuple[list[Span], dict]:
+        spans = [Span(*s) for s in self.spans]
+        counts = self.counts
+        self.spans, self.counts, self._open = [], {}, []
+        return spans, counts
+
+
+TRACER = Tracer()
+_NULL = nullcontext()
+
+
+def trace_on(annotate: bool = False) -> None:
+    """Start keeping spans and counts; with `annotate`, also as
+    torch.profiler annotations named "meshdqn:<span>"."""
+    TRACER.on, TRACER.annotate = True, annotate
+
+
+def trace_off() -> None:
+    TRACER.on = TRACER.annotate = False
+
+
+def tracing() -> Tracer | None:
+    """The tracer while tracing is on, else None: the one test a hot loop
+    makes before it opens spans."""
+    return TRACER if TRACER.on else None
+
+
+def span(name: str):
+    """A span around a `with` block while tracing is on; a shared null
+    context (no clock, no allocation) while it is off."""
+    return TRACER.span(name) if TRACER.on else _NULL
+
+
+def count(name: str, n: int = 1) -> None:
+    if TRACER.on:
+        TRACER.count(name, n)
+
+
+def take_trace() -> tuple[list[Span], dict]:
+    """The spans (closed ones have end_ns; parents index the same list) and
+    counts kept since the last take, and clear them.  Take between calls,
+    with no span open."""
+    return TRACER.take()
