@@ -70,7 +70,7 @@ The kernels are built from source at first use.  Phases, one JSON line each
 
   device     nvidia-smi's name and power limit, the device name, and the
              device-memory, f32 and f64 peaks used for the bounds
-  build      nvcc of the three kernel sources, started together
+  build      nvcc of the four kernel sources, started together
   kernels    each kernel at each shape its paths give it (the CG kernels
              on both finest meshes): held against its plain
              torch version (||y - plain|| / ||plain|| within
@@ -102,10 +102,15 @@ The kernels are built from source at first use.  Phases, one JSON line each
              block, head classes, window) and the bytes of x it staged.
              Sparse rows also hold the gap over the rows that are not
              identity (Dirichlet) rows; the ELL kernel also at the unfused
-             step's operators on both packs, f32 and f64
+             step's operators on both packs, f32 and f64.  The convection
+             kernel (csrc/convection.cu, no TPU kernel behind it) on both
+             packs and the benchmark's padded mesh, f32 and f64, within
+             twice the torch twin's gap to a host f64 evaluation plus four
+             ulps, timed beside the twin
   solve      per pack: the fused f32 solve from rest with the launch
-             counters zeroed (3 grouped launches a step and no single one,
-             asserted); drag/lift within 1e-3 of the pack's f64 values
+             counters zeroed (3 grouped launches and one convection call a
+             step and no single launch, asserted); drag/lift within 1e-3 of
+             the pack's f64 values
   grouped_bits  per pack: 100 steps from the solve's last state through
              the grouped launches and through seven single launches a step
              (fused_step(..., apply=matvec)), bit-equal at every step
@@ -475,6 +480,91 @@ def check_kernels(cuda, meshes, mem_peak, flop_peak, flush):
     return summary
 
 
+def convection_tables(mesh, dtype, cuda, pad_quantum=0):
+    """The convection table of `mesh` as the fused solver builds it (with
+    pad_quantum: ns_pad and cells_pad 256), and a velocity of N(0, 1) at
+    the real dofs, 0 at the pad dofs."""
+    from meshdqn_tpu_torch.ops.convection import ConvectionKernel
+
+    ns = mesh.num_vertices + mesh.num_edges
+    kw = {}
+    nsq = ns
+    if pad_quantum:
+        nsq = -(-ns // pad_quantum) * pad_quantum
+        kw = {"ns_pad": nsq, "cells_pad": 256}
+    k = ConvectionKernel.build(mesh, device=cuda, dtype=dtype, **kw)
+    u = np.zeros(k.ndofs)
+    rng = np.random.default_rng(ns)
+    u[:ns], u[nsq:nsq + ns] = rng.standard_normal(ns), rng.standard_normal(ns)
+    return k, torch.tensor(u, dtype=dtype, device=cuda)
+
+
+def convection_exact(k, u):
+    """The f64 evaluation of the convection of u by table k on the host, by
+    the torch twin: on the card's tensors' values, in another order of
+    summation than the twin's on the card (so the twin's own gap to it is
+    not 0 in f64 either); on u's device."""
+    import dataclasses
+
+    from meshdqn_tpu_torch.ops import convection as cv
+
+    host = {f.name: getattr(k, f.name) for f in dataclasses.fields(k)}
+    host = {n: v if not torch.is_tensor(v) else v.cpu().double()
+            if v.is_floating_point() else v.cpu() for n, v in host.items()}
+    return cv.convection_vector_reference(cv.ConvectionKernel(**host),
+                                          u.cpu().double()).to(u.device)
+
+
+def check_convection(cuda, meshes, pk, flush):
+    """The convection kernel (csrc/convection.cu) on each pack unpadded and
+    on the benchmark's mesh (the sweep's 0.10 ys930 row, padded to 768 as
+    its row_config solves it), f32 and f64: against the f64 evaluation of
+    the same inputs on the host, within twice the torch twin's own gap plus
+    four ulps; the same bits twice; timed beside the twin and its bound
+    (the tables with the slot rows packed, u and the output, each once;
+    per cell and point 48 FMAs and 8 other operations, and a dof's slot
+    sum)."""
+    from meshdqn_tpu_torch.mesh import load_npz
+    from meshdqn_tpu_torch.mesh.xdmf import DATA_DIR
+    from meshdqn_tpu_torch.ops import convection as cv
+    from meshdqn_tpu_torch.ops.matvec import relative_gap
+
+    cases = [(name, mesh, 0) for name, mesh in meshes.items()]
+    cases.append(("ys930_0.10", load_npz(DATA_DIR / "ys930_0.10000_gen.npz")[0], 768))
+    for name, mesh, pq in cases:
+        for dtype in (torch.float32, torch.float64):
+            k, u = convection_tables(mesh, dtype, cuda, pq)
+            exact = convection_exact(k, u)
+            y = cv.convection_vector(k, u)
+            torch.cuda.synchronize()
+            if not torch.equal(y, cv.convection_vector(k, u)):
+                raise AssertionError(f"convection {name} {dtype}: bits differ")
+            twin_gap = relative_gap(cv.convection_vector_reference(k, u), exact)
+            eps = 2.0**-24 if dtype == torch.float32 else 2.0**-53
+            tol = 2 * twin_gap + 4 * eps
+            gap = relative_gap(y, exact)
+            if not gap <= tol:
+                raise AssertionError(f"convection {name} {dtype}: gap {gap:.3g} "
+                                     f"above {tol:.3g}")
+            # What the kernel reads: the tables with the slot rows packed.
+            tables = [k.cell_dofs, k.phi, k.gphys, k.wdet, cv.packed_slots(k)]
+            nbytes = (sum(t.numel() * t.element_size() for t in tables)
+                      + 2 * u.numel() * u.element_size())
+            C, Q = k.wdet.shape
+            flops = 104 * C * Q + k.dof_slots.numel()
+            row = {"phase": "kernels", "kernel": "convection", "mesh": name,
+                   "dtype": str(dtype).split(".")[-1], "cells": k.cell_dofs.shape[0],
+                   "ndofs": k.ndofs, "slots": k.dof_slots.shape[1],
+                   "packed_slots": tables[-1].shape[1], "rel_gap": gap,
+                   "twin_rel_gap": twin_gap, "tol": tol, "read_MB": nbytes / 1e6,
+                   "kernel_ms": time_ms(lambda: cv.convection_vector(k, u), flush),
+                   "plain_ms": time_ms(lambda: cv.convection_vector_reference(k, u),
+                                       flush),
+                   **bound_of(nbytes, flops, pk[0],
+                              pk[1] if dtype == torch.float32 else pk[2])}
+            emit(row)
+
+
 def grouped_forms(mv, ns, npr):
     """The fused step's three grouped launches at a pack's sizes: (form,
     grouped wrapper, plain version, the operands' names, the row product
@@ -575,6 +665,7 @@ def check_grouped(cuda, sizes, mem_peak, flop_peak, flush, single_rows, main=PAC
 
 
 def solve_pack(cuda, name, mesh, z, meta, mem_peak):
+    from meshdqn_tpu_torch.ops.convection import convection_vector
     from meshdqn_tpu_torch.solver import FlowState, IPCSSolver
     from meshdqn_tpu_torch.utils.profiling import fused_step_bytes
 
@@ -596,6 +687,7 @@ def solve_pack(cuda, name, mesh, z, meta, mem_peak):
     torch.cuda.synchronize()
 
     zero_counters()
+    conv_before = convection_vector.launches
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -609,6 +701,9 @@ def solve_pack(cuda, name, mesh, z, meta, mem_peak):
               "step_velocity": STEPS}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches}, expected {expect}")
+    if convection_vector.launches - conv_before != STEPS:
+        raise AssertionError(f"{name}: {convection_vector.launches - conv_before} "
+                             f"convection launches in {STEPS} steps")
 
     st = out["state"]
     if st.u.shape != (solver.ndofs_u,) or st.p.shape != (solver.ndofs_p,):
@@ -3326,7 +3421,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "mem_peak_B_s": pk[0],
           "f32_peak_flop_s": pk[1], "f64_peak_flop_s": pk[2]})
 
-    sources = ("matvec", "banded", "ell")
+    sources = build.sources()
     t0 = time.perf_counter()
     build.compile_all(sources)
     for name in sources:
@@ -3342,6 +3437,8 @@ def main(argv=None) -> int:
     summary["matvec_cols"] = check_cols(cuda, {n: p[0] for n, p in packs.items()},
                                         pk[0], pk[1], flush)
     summary["matvec_group_df32"] = check_split(cuda, packs, pk[0], pk[1], flush)
+    # No TPU kernel behind it, so no entry in the final kernels line.
+    check_convection(cuda, {n: p[0] for n, p in packs.items()}, pk, flush)
     summary.update(check_cg_kernels(cuda, {n: f[0] for n, f in finest.items()},
                                     pk, flush))
     summary["ell_matmat"]["unfused_steps"] = check_unfused_ell(cuda, packs, pk, flush)

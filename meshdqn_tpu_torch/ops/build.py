@@ -3,7 +3,10 @@
 The source is compiled by nvcc for sm_90a into a shared library with a plain
 C interface, loaded with ctypes.  The library goes to meshdqn_tpu_torch/_build/
 under a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+source is rebuilt and an unchanged one is loaded as it is.  The first load
+builds every source whose library is missing, all at once: a step that
+launches kernels of several sources (the fused step: matvec and convection)
+waits for one round of nvcc, not one per source.
 """
 from __future__ import annotations
 
@@ -70,12 +73,17 @@ def compile_all(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def sources() -> list[str]:
+    """The names of the port's CUDA sources, csrc/<name>.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, compiling it first if its library
-    is missing."""
+    """The ctypes handle of csrc/<name>.cu, compiling first every source
+    whose library is missing (see the module's note)."""
     lib = _loaded.get(name)
     if lib is None:
-        compile_all([name])
+        compile_all(sources())
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -2,28 +2,33 @@
 
 Counterpart of meshdqn_tpu/ops/convection.py, the only nonlinear term of the
 IPCS step-1 right-hand side.  The tabulation is built once per mesh on the
-host with numpy and moved to the device; `convection_vector` is plain torch:
-gather the 12 local velocity dofs per cell, evaluate u and grad(u) at the
-quadrature points, contract with the test basis, and sum into the global
-vector.
+host with numpy and moved to the device.  `convection_vector` gathers the
+12 local velocity dofs per cell, evaluates u and grad(u) at the quadrature
+points, contracts with the test basis, and sums into the global vector:
+
+* on CUDA tensors, in one call into csrc/convection.cu (two launches: the
+  element vectors, then the slot sums), f32 or f64 as the tables are;
+* on CPU tensors, in plain torch, `convection_vector_reference`, which the
+  tests hold against the JAX kernel and the card tests hold the kernel to.
 
 `convection_columns` (the ensemble's velocity columns) and
 `convection_members` (the batched flows' members, each with its own table)
 call the single form once per column or member and stack the results.  A
-batched form would send `U @ phi.T`, `torch.bmm` and the slot sum through
-other shapes, for which torch may pick other kernels and another order of
-summation; the loop gives each column and member the single call's bits by
-construction, which the ensemble's member of amplitude 1.0 and the batch's
-base member rely on to equal their solo solves bit for bit.
+batched form would sum in other shapes and orders; the loop gives each
+column and member the single call's bits by construction, which the
+ensemble's member of amplitude 1.0 and the batch's base member rely on to
+equal their solo solves bit for bit.
 
 The sum is deterministic.  Atomic scatters (`index_add_` on CUDA) change the
 order of additions, and so the bits, from run to run; instead each global
 dof owns a padded row of the (cell, local slot) entries it receives
 (`dof_slots`, ascending in element order), pad slots point at an appended
-zero, and the row is summed in fixed order.
+zero, and the row is summed in fixed order, by the plain version and by the
+kernel alike (the kernel reads the rows packed, `packed_slots`).
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +38,30 @@ from ..fem.assembly import cell_jacobians
 from ..fem.reference import dunavant_6, p2_basis, p2_grads
 from ..fem.spaces import VectorP2Space
 from ..mesh import TriMesh
+from ..utils.profiling import count
+from . import build
+
+# Quadrature points a cell the kernel takes, at most (csrc/convection.cu
+# kMaxPoints); the tables' rule has 12.
+MAX_POINTS = 32
+# The kernel's C entry point by the tables' dtype.
+_ENTRY = {torch.float32: "convection_f32", torch.float64: "convection_f64"}
+
+_LIB = None
+
+
+def _lib():
+    """csrc/convection.cu's library, built at first use, with its C
+    signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("convection")
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def dof_slots(cell_dofs: np.ndarray, ndofs: int) -> np.ndarray:
@@ -145,8 +174,9 @@ class ConvectionKernel:
         return convection_vector(self, u)
 
 
-def convection_vector(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
-    """Assemble ((u.grad)u, v) for the velocity field u (ndofs,)."""
+def convection_vector_reference(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
+    """Plain version of `convection_vector`, in torch, in the tables'
+    dtype."""
     C = k.cell_dofs.shape[0]
     Q = k.phi.shape[0]
     U = u[k.cell_dofs].view(C, 2, 6)  # (cell, component, local dof)
@@ -161,11 +191,111 @@ def convection_vector(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
     return padded[k.dof_slots].sum(dim=1)
 
 
+def packed_slots(k: ConvectionKernel) -> torch.Tensor:
+    """k's incidence table as the kernel reads it, (ndofs, W) int32: each
+    row's entries in the table's order without the pad slots and the
+    entries of cells of zero weight (every term of theirs is scaled by
+    wdet = 0), then padded with 12 C to the widest row (at least 1).  A row
+    sums to the table row's sum but for the sign of a zero result."""
+    C = k.cell_dofs.shape[0]
+    live = torch.cat([(k.wdet != 0).any(dim=1).repeat_interleave(12),
+                      k.wdet.new_zeros(1, dtype=torch.bool)])
+    keep = live[k.dof_slots]
+    width = max(int(keep.sum(dim=1).max()), 1) if keep.numel() else 1
+    # Stable: the kept entries move to the front of their row in order.
+    order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
+    packed = torch.where(keep, k.dof_slots, 12 * C).gather(1, order)[:, :width]
+    return packed.to(torch.int32).contiguous()
+
+
+def _launch_args(k: ConvectionKernel) -> tuple:
+    """(C entry point, pointers, (C, Q, W, ndofs), device, dtype, the
+    packed slots, kept alive here) of k's tables, kept on k as `_checked`.
+    The tables are constant over a solve, so they are checked and packed
+    once: while k holds the same objects neither is repeated.  The check
+    reads both index tables' ranges (a host sync), as the kernel gathers
+    through them unchecked."""
+    tables = (k.cell_dofs, k.phi, k.gphys, k.wdet, k.dof_slots, k.ndofs)
+    held = getattr(k, "_checked", None)
+    if held is not None and all(a is b for a, b in zip(held[0], tables)):
+        return held[1]
+    cell_dofs, phi, gphys, wdet, slots, ndofs = tables
+    dtype, device = phi.dtype, phi.device
+    if dtype not in _ENTRY:
+        raise TypeError(f"the kernel takes float32 or float64 tables, got {dtype}")
+    if wdet.dim() != 2 or slots.dim() != 2:
+        raise ValueError("wdet and dof_slots must have two dimensions")
+    (C, Q), S = wdet.shape, slots.shape[1]
+    for name, t, shape, want in (
+        ("cell_dofs", cell_dofs, (C, 12), torch.int64), ("phi", phi, (Q, 6), dtype),
+        ("gphys", gphys, (C, 6, Q, 2), dtype), ("wdet", wdet, (C, Q), dtype),
+        ("dof_slots", slots, (ndofs, S), torch.int64),
+    ):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, phi on {device}")
+        if t.dtype != want:
+            raise TypeError(f"the kernel takes {want} for {name}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, not {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"the kernel takes contiguous tables; {name} is not")
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(f"the tables are on {device}, not on the current CUDA device")
+    if not 1 <= Q <= MAX_POINTS:
+        raise ValueError(f"the kernel takes 1 to {MAX_POINTS} quadrature points, got {Q}")
+    for name, t, top in (("cell_dofs", cell_dofs, ndofs - 1),
+                         ("dof_slots", slots, 12 * C)):
+        if t.numel() and not (0 <= int(t.min()) and int(t.max()) <= top):
+            raise ValueError(f"{name} holds an index outside [0, {top}]")
+    packed = packed_slots(k)
+    ptrs = (cell_dofs.data_ptr(), phi.data_ptr(), gphys.data_ptr(), wdet.data_ptr(),
+            packed.data_ptr())
+    args = (getattr(_lib(), _ENTRY[dtype]), ptrs, (C, Q, packed.shape[1], ndofs),
+            device, dtype, packed)
+    k._checked = (tables, args)
+    return args
+
+
+def convection_vector(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
+    """Assemble ((u.grad)u, v) for the velocity field u (ndofs,): one call
+    into the kernel on CUDA, counted in `convection_vector.launches` (and
+    as `convection.launches` while tracing is on); the plain version on the
+    CPU."""
+    if not (u.is_cuda or k.phi.is_cuda):
+        return convection_vector_reference(k, u)
+    fn, ptrs, sizes, device, dtype, _ = _launch_args(k)
+    C, _, _, ndofs = sizes
+    if u.device != device:
+        raise ValueError(f"u is on {u.device}, the tables on {device}")
+    if u.dtype != dtype:
+        raise TypeError(f"the tables are {dtype}, u is {u.dtype}")
+    if u.shape != (ndofs,):
+        raise ValueError(f"u must have shape ({ndofs},), got {tuple(u.shape)}")
+    if not u.is_contiguous():
+        raise ValueError("the kernel takes a contiguous u")
+    # The output and, behind it, the element vectors with their pad slot: a
+    # fresh buffer a call (convection_columns and convection_members stack
+    # several results).
+    buf = torch.empty(ndofs + 12 * C + 1, dtype=dtype, device=device)
+    out = buf.data_ptr()
+    err = fn(u.data_ptr(), *ptrs, out + ndofs * buf.element_size(), out, *sizes,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_ENTRY[dtype]} launch failed: cudaError_t {err}")
+    convection_vector.launches += 1
+    count("convection.launches")
+    return buf[:ndofs]
+
+
+convection_vector.launches = 0
+
+
 def convection_columns(k: ConvectionKernel, u: torch.Tensor) -> torch.Tensor:
     """c(u[:, j]) for each column of u (ndofs, B), as (ndofs, B): the single
-    call per column (see the module's note)."""
-    return torch.stack([convection_vector(k, u[:, j]) for j in range(u.shape[1])],
-                       dim=1)
+    call per column (see the module's note), on the columns made contiguous
+    once."""
+    cols = u.T.contiguous()
+    return torch.stack([convection_vector(k, col) for col in cols], dim=1)
 
 
 def convection_members(kernels, u: torch.Tensor) -> torch.Tensor:

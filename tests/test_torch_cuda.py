@@ -712,14 +712,16 @@ def test_split_launches_reject_what_they_do_not_take(cuda):
 # --------------------------------------------------------------------------
 
 # Per config: {counter: launches a step}; counters not named stay at 0.
+# Every path makes one convection launch a step, f32 or f64.
 MODES = {
     "f32": ({"precision": "f32"}, {"step_ustar": 1, "step_pressure": 1,
-                                   "step_velocity": 1}),
+                                   "step_velocity": 1, "convection": 1}),
     "df32": ({"precision": "df32"}, {"step_ustar_df32": 1, "step_pressure_df32": 1,
-                                     "step_velocity_df32": 1}),
-    "f32_unfused": ({"precision": "f32", "fused": False}, {"matvec": 3, "ell": 6}),
-    "mixed": ({"precision": "mixed"}, {"matvec": 5, "ell": 8}),
-    "f64": ({}, {"ell": 6}),
+                                     "step_velocity_df32": 1, "convection": 1}),
+    "f32_unfused": ({"precision": "f32", "fused": False},
+                    {"matvec": 3, "ell": 6, "convection": 1}),
+    "mixed": ({"precision": "mixed"}, {"matvec": 5, "ell": 8, "convection": 1}),
+    "f64": ({}, {"ell": 6, "convection": 1}),
 }
 _MATVEC_COUNTERS = ("matvec", "matvec_dual", "step_ustar", "step_pressure",
                     "step_velocity", "step_ustar_df32", "step_pressure_df32",
@@ -737,6 +739,7 @@ def test_solver_modes_launch_their_kernels(cuda, mode):
     import numpy as np
 
     from meshdqn_tpu_torch.mesh import TriMesh
+    from meshdqn_tpu_torch.ops import convection as cv
     from meshdqn_tpu_torch.ops import sparse as ell
     from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
 
@@ -747,7 +750,8 @@ def test_solver_modes_launch_their_kernels(cuda, mode):
     assert s.device.type == "cuda"
     counters = lambda: {**{k: getattr(mv, k).launches for k in _MATVEC_COUNTERS},
                         "ell": ell.ell_matmat.launches,
-                        "ell_plain": ell.ell_matmat_reference.calls}
+                        "ell_plain": ell.ell_matmat_reference.calls,
+                        "convection": cv.convection_vector.launches}
     before = counters()
     st, d, _ = s.evolve(s.initial_state(), 3)
     torch.cuda.synchronize()
@@ -1009,3 +1013,208 @@ def test_bf16_cg_step_launches(cuda):
     assert tuple(b - a for a, b in zip(before, after)) == (18 * steps, 18 * steps,
                                                            2 * steps, 0)
     assert torch.isfinite(d).all() and torch.isfinite(l).all()
+
+
+# --------------------------------------------------------------------------
+# The convection kernel (csrc/convection.cu, ops/convection.py
+# convection_vector) against its plain version, the torch twin, on the
+# benchmark's mesh in the fused layout (the resolution sweep's 0.10 ys930
+# row, pad_quantum 768: ns_pad 6144, cells_pad 256), on the ys930 pack
+# unpadded and on the pack in the banded CG layout (dof_perm).
+# --------------------------------------------------------------------------
+
+CONV_LAYOUTS = ("fine_padded", "pack", "pack_cg")
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_host(layout):
+    """(mesh, ConvectionKernel.build keywords, real dofs mask) of a layout."""
+    import pathlib
+
+    from meshdqn_tpu_torch.mesh import TriMesh, load_npz
+    from meshdqn_tpu_torch.mesh.xdmf import DATA_DIR
+
+    if layout == "fine_padded":
+        mesh = load_npz(DATA_DIR / "ys930_0.10000_gen.npz")[0]
+        ns = mesh.num_vertices + mesh.num_edges
+        nsq = -(-ns // 768) * 768
+        real = np.zeros(2 * nsq, bool)
+        real[:ns] = real[nsq:nsq + ns] = True
+        return mesh, {"ns_pad": nsq, "cells_pad": 256}, real
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    z = np.load(repo / "checkpoints" / "ys930_results" / "ground_truth.npz")
+    mesh = TriMesh(z["coords"], z["cells"])
+    real = np.ones(2 * (mesh.num_vertices + mesh.num_edges), bool)
+    if layout == "pack":
+        return mesh, {}, real
+    from meshdqn_tpu_torch.solver import IPCSConfig
+    from meshdqn_tpu_torch.solver.ipcs import cg_matrices
+
+    o2n = cg_matrices(mesh, IPCSConfig(precision="f32", method="cg"))["o2n_u"]
+    return mesh, {"dof_perm": o2n}, real
+
+
+def _conv_case(cuda, layout, dtype, seed=0):
+    """(table on the card, u on the card, f64 evaluation of the same inputs
+    on the host (chip_smoke.convection_exact), real dofs mask): u is
+    N(0, 1) at the real dofs and 0 at the pad dofs."""
+    from meshdqn_tpu_torch.ops.convection import ConvectionKernel
+
+    mesh, kw, real = _conv_host(layout)
+    k = ConvectionKernel.build(mesh, device=cuda, dtype=dtype, **kw)
+    u = np.zeros(k.ndofs)
+    u[real] = np.random.default_rng(seed).standard_normal(int(real.sum()))
+    u = torch.tensor(u, dtype=dtype, device=cuda)
+    return k, u, _chip_smoke().convection_exact(k, u), torch.as_tensor(real, device=cuda)
+
+
+def _moved_slot(k, exact):
+    """k with one entry of a slot table row moved into another row's pad:
+    the entry of the largest output's first slot, into the first row with a
+    pad slot left."""
+    import dataclasses
+
+    slots = k.dof_slots.clone()
+    pad = 12 * k.cell_dofs.shape[0]
+    d = int(exact.abs().argmax())
+    d2 = int(torch.nonzero((slots == pad).any(dim=1))[0])
+    assert d2 != d and slots[d, 0] != pad
+    free = int(torch.nonzero(slots[d2] == pad)[0])
+    slots[d2, free], slots[d, 0] = slots[d, 0].clone(), pad
+    return dataclasses.replace(k, dof_slots=slots)
+
+
+def _conv_tol(twin_gap, dtype):
+    """The kernel's allowed norm-relative gap to the f64 evaluation: twice
+    the twin's own, plus four ulps of the dtype."""
+    eps = 2.0**-24 if dtype == torch.float32 else 2.0**-53
+    return 2 * twin_gap + 4 * eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", CONV_LAYOUTS)
+def test_convection_kernel_matches_plain_and_repeats_bits(cuda, layout, dtype):
+    """The kernel against the f64 evaluation of the same inputs within
+    `_conv_tol` of the twin's own gap, the same bits in 3 calls, 3 launches
+    counted, the pad dofs exactly 0; the control, a table with one slot
+    entry moved to another row, fails the same check."""
+    from meshdqn_tpu_torch.ops import convection as cv
+
+    k, u, exact, real = _conv_case(cuda, layout, dtype)
+    before = cv.convection_vector.launches
+    ys = [cv.convection_vector(k, u) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert cv.convection_vector.launches == before + 3
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    assert ys[0].dtype == dtype and ys[0].shape == (k.ndofs,)
+    tol = _conv_tol(mv.relative_gap(cv.convection_vector_reference(k, u), exact), dtype)
+    assert mv.relative_gap(ys[0], exact) <= tol
+    assert bool((ys[0][~real] == 0).all())
+    assert mv.relative_gap(cv.convection_vector(_moved_slot(k, exact), u), exact) > tol
+
+
+@pytest.mark.cuda
+def test_convection_kernel_counts_and_rejects(cuda):
+    """The launch counter and the tracer's `convection.launches`, equal to
+    the `steps` counter in a traced solve; non-contiguous input, the wrong
+    dtype, size and device, and a slot index past the pad rejected."""
+    import dataclasses
+
+    from meshdqn_tpu_torch.ops import convection as cv
+    from meshdqn_tpu_torch.solver import IPCSConfig, IPCSSolver
+    from meshdqn_tpu_torch.utils import profiling
+
+    k, u, _, _ = _conv_case(cuda, "pack", torch.float32)
+    solver = IPCSSolver(_conv_host("pack")[0], IPCSConfig(precision="f32"), device=cuda)
+    profiling.take_trace()
+    profiling.trace_on()
+    try:
+        before = cv.convection_vector.launches
+        cv.convection_vector(k, u)
+        cv.convection_vector(k, u)
+        assert cv.convection_vector.launches == before + 2
+        assert profiling.take_trace()[1] == {"convection.launches": 2}
+        solver.evolve(solver.initial_state(), 10)
+        counts = profiling.take_trace()[1]
+    finally:
+        profiling.trace_off()
+    assert counts["convection.launches"] == counts["steps"] == 10
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.convection_vector(k, torch.zeros(2 * k.ndofs, device=cuda)[::2])
+    with pytest.raises(TypeError):
+        cv.convection_vector(k, u.double())
+    with pytest.raises(ValueError, match="shape"):
+        cv.convection_vector(k, u[:-1])
+    with pytest.raises(ValueError, match="is on"):
+        cv.convection_vector(k, u.cpu())
+    slots = k.dof_slots.clone()
+    slots[0, 0] = 12 * k.cell_dofs.shape[0] + 1
+    with pytest.raises(ValueError, match="outside"):
+        cv.convection_vector(dataclasses.replace(k, dof_slots=slots), u)
+
+
+FUSED_DEVIATION_JAX = "fused_f32_step_deviation_jax.json"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_name", ["ys930", "ah93w145", "fine_padded"])
+def test_fused_steps_with_the_convection_kernel_are_as_accurate(cuda, mesh_name):
+    """The 2x rule of tests/test_torch_fused.py on the ensemble of one-step
+    deviations (tests/test_torch_dense_modes.py's note): from each of the
+    first 100 states of the exact trajectory (the fused step in f64, its
+    convection the twin's), rounded to f32, one step of the fused f32
+    solver (grouped launches, the convection kernel) and one exact step.
+    The RMS over the states of the deviation in u, p, drag and lift stays
+    within 2x JAX's own on the packs
+    (scripts/torch_fused_step_deviation.py; JAX cannot be run on the
+    benchmark's mesh within the tests' memory) and within 2x that of the
+    same step with the twin's convection on every mesh."""
+    import json
+    import pathlib
+
+    from meshdqn_tpu_torch.mesh import TriMesh
+    from meshdqn_tpu_torch.mesh.xdmf import DATA_DIR
+    from meshdqn_tpu_torch.ops.convection import convection_vector_reference
+    from meshdqn_tpu_torch.solver import (
+        FlowState, IPCSConfig, IPCSSolver, build_fused_operators, fused_step,
+    )
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a.double() - b)
+                / torch.linalg.vector_norm(b)).item()
+
+    def twin(dev):
+        return dev._replace(conv=functools.partial(convection_vector_reference, dev.conv))
+
+    if mesh_name == "fine_padded":
+        mesh = _conv_host("fine_padded")[0]
+        cfg = IPCSConfig(precision="f32", pad_quantum=768)
+    else:
+        repo = pathlib.Path(__file__).resolve().parents[1]
+        run = repo / "checkpoints" / f"{mesh_name}_results"
+        z = np.load(run / "ground_truth.npz")
+        mesh = TriMesh(z["coords"], z["cells"])
+        meta = json.loads((run / "ground_truth_meta.json").read_text())
+        cfg = IPCSConfig(precision="f32", **{k: meta[k] for k in ("mu", "rho", "dt")})
+    dev32 = IPCSSolver(mesh, cfg, device=cuda).dev
+    dev64 = twin(build_fused_operators(mesh, cfg, device=cuda, dtype=torch.float64)[0])
+    exact_step = functools.partial(fused_step, dev64, apply=mv.matvec_reference)
+    exact = FlowState(u=torch.zeros(dev64.k1.shape[0], dtype=torch.float64, device=cuda),
+                      p=torch.zeros(dev64.k2.shape[0], dtype=torch.float64, device=cuda))
+    rows = {"kernel": [], "twin": []}
+    for _ in range(100):
+        exact, _ = exact_step(exact)
+        start = FlowState(exact.u.float(), exact.p.float())
+        ref, (rd, rl) = exact_step(FlowState(start.u.double(), start.p.double()))
+        for path, dev in (("kernel", dev32), ("twin", twin(dev32))):
+            s, (d, l) = fused_step(dev, start)
+            rows[path].append((rel(s.u, ref.u), rel(s.p, ref.p),
+                               abs(d.item() - rd.item()), abs(l.item() - rl.item())))
+    rms = {p: np.sqrt(np.mean(np.square(r), axis=0)) for p, r in rows.items()}
+    assert np.all(rms["kernel"] > 0), rms
+    assert np.all(rms["kernel"] <= 2 * rms["twin"]), rms
+    if mesh_name != "fine_padded":
+        jax = json.loads((DATA_DIR / FUSED_DEVIATION_JAX).read_text())
+        theirs = np.array([jax["rms"][mesh_name][m] for m in jax["metrics"]])
+        assert np.all(rms["kernel"] <= 2 * theirs), (rms, theirs)

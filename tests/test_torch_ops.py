@@ -187,6 +187,66 @@ def test_convection_from_jax_arrays_is_the_same_kernel(meshes):
     assert torch.equal(tk(u), built(u))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_convection_on_the_cpu_is_the_plain_version(meshes, dtype):
+    """On CPU tensors `convection_vector` runs the twin and nothing else:
+    its bits, no launch counted, no tracer count; `convection_columns` gives
+    each column the single call's bits."""
+    from meshdqn_tpu_torch.ops import convection as cv
+    from meshdqn_tpu_torch.utils import profiling
+
+    _, tm = meshes
+    tk = ConvectionKernel.build(tm, device="cpu", dtype=dtype, ns_pad=4096,
+                                cells_pad=256)
+    U = torch.from_numpy(np.random.default_rng(7).standard_normal((tk.ndofs, 3))).to(dtype)
+    before = cv.convection_vector.launches
+    profiling.take_trace()
+    profiling.trace_on()
+    try:
+        y = cv.convection_vector(tk, U[:, 0].contiguous())
+        cols = cv.convection_columns(tk, U)
+        counts = profiling.take_trace()[1]
+    finally:
+        profiling.trace_off()
+    assert torch.equal(y, cv.convection_vector_reference(tk, U[:, 0].contiguous()))
+    for j in range(3):
+        assert torch.equal(cols[:, j], cv.convection_vector_reference(tk, U[:, j]))
+    assert cv.convection_vector.launches == before and counts == {}
+
+
+def test_packed_slots_drop_the_pads_and_the_cells_of_zero_weight(meshes):
+    """The kernel's slot rows: each table row's entries of cells of nonzero
+    weight, in the table's order, then the pad, no wider than the widest
+    such row; with cells_pad the padded cells' entries all go (they repeat
+    cell 0's dofs, which makes the table itself far wider)."""
+    from meshdqn_tpu_torch.ops.convection import packed_slots
+
+    _, tm = meshes
+    tk = ConvectionKernel.build(tm, device="cpu", dtype=torch.float32, ns_pad=4096,
+                                cells_pad=256)
+    C = tk.cell_dofs.shape[0]
+    pad = 12 * C
+    live = (tk.wdet != 0).any(dim=1).tolist()
+    rows = [[e for e in row if e != pad and live[e // 12]]
+            for row in tk.dof_slots.tolist()]
+    width = max(map(len, rows))
+    packed = packed_slots(tk)
+    assert packed.dtype == torch.int32 and packed.shape == (tk.ndofs, width)
+    assert packed.tolist() == [r + [pad] * (width - len(r)) for r in rows]
+    assert C > tm.num_cells and width < tk.dof_slots.shape[1]
+
+
+def test_benchmark_counts_the_convection_kernels_as_the_programs():
+    """portbench reads the program's kernel names from the `__global__`
+    lines of csrc/*.cu; the convection kernels must be among them, or
+    `torch_ops_device_ms_per_step` would count them as torch ops."""
+    from portbench.devtrace import port_kernels
+    from tests.torch_helpers import REPO
+
+    assert {"convection_cells_kernel", "convection_slots_kernel",
+            "group_kernel"} <= port_kernels(REPO)
+
+
 def test_dof_slots_lists_every_entry_once_in_order():
     cell_dofs = np.array([[0, 2, 1], [2, 3, 0], [2, 2, 4]])
     table = dof_slots(cell_dofs, 6)
