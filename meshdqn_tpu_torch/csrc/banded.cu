@@ -220,13 +220,11 @@ __device__ __forceinline__ void copy_async(TA* dst, const TA* src, bool in) {
 // R / kWarpRows: the rows of a block's warps lie in one row block and share
 // its x window.  kRound: bf16 blocks in the plain layout (the header).
 template <typename Tag, int M, bool kRound>
-__global__ void __launch_bounds__(kThreads)
-    banded_tiles_kernel(const uint4* __restrict__ tiles, const int* __restrict__ offsets,
-                        const int* __restrict__ cols,
-                        const typename Blocks<Tag>::acc* __restrict__ X,
-                        typename Blocks<Tag>::acc* __restrict__ Y, int R, int W,
-                        int g, int pad, int aligned, int n_rows, int n_cols,
-                        int n_tiles) {
+__global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
+    const uint4* __restrict__ tiles, const int* __restrict__ offsets,
+    const int* __restrict__ cols, const typename Blocks<Tag>::acc* __restrict__ X,
+    typename Blocks<Tag>::acc* __restrict__ Y, int R, int W, int g, int pad, int aligned,
+    int n_rows, int n_cols, int n_tiles) {
   using TA = typename Blocks<Tag>::acc;
   const long long n_elem = static_cast<long long>(n_cols) * M;
   const int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);  // warp's rows

@@ -68,11 +68,10 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 }
 
 template <typename T, int M, int G>
-__global__ void __launch_bounds__(kThreads)
-    ell_kernel(const int* __restrict__ cols, const T* __restrict__ vals,
-               const int* __restrict__ offsets, const int* __restrict__ widths,
-               const T* __restrict__ X, T* __restrict__ Y, int R, int uniform,
-               int n_warps) {
+__global__ void __launch_bounds__(kThreads) ell_kernel(
+    const int* __restrict__ cols, const T* __restrict__ vals,
+    const int* __restrict__ offsets, const int* __restrict__ widths,
+    const T* __restrict__ X, T* __restrict__ Y, int R, int uniform, int n_warps) {
   constexpr int kLeaves = 32 / G;  // leaf slots a lane holds
   // Steps whose loads a lane issues before its gathers: two rounds of 32
   // entries of a row where the registers allow, one for G = 1 and 2.

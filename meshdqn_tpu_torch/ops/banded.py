@@ -43,8 +43,9 @@ it reads and the blocks they came from cannot drift apart.  On CUDA
 tensors it launches the kernel or raises; on CPU tensors it uses the plain
 version `banded_matmat_reference`, which computes
 from the dense blocks, independently of the packing.
-`banded_matmat.launches` counts kernel launches,
-`banded_matmat_reference.calls` calls of the plain version.
+`banded_matmat.launches` counts kernel launches (and `banded.launches`
+while tracing is on, utils.profiling), `banded_matmat_reference.calls`
+calls of the plain version.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.profiling import count
 from . import build
 from .matvec import MAX_SMEM_BYTES
 
@@ -294,6 +296,7 @@ def banded_matmat(A: "BandedMatrix", X: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     banded_matmat.launches += 1
+    count("banded.launches")
     if A.blocks.dtype == torch.bfloat16:
         banded_matmat.bf16_launches += 1  # banded_matmat_bf16 (TPU kernel #6)
     return Y

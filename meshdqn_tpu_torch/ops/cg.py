@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 @dataclass
 class BlockJacobi:
@@ -80,7 +82,8 @@ def pcg(A, dinv, B: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
 
     A is any operator with .matmat (ops.banded.BandedMatrix or
     ops.sparse.EllMatrix); dinv a (n,) Jacobi diagonal or a BlockJacobi.
-    Makes 1 + iters products with A."""
+    Makes 1 + iters products with A, counted as `pcg.products` while
+    tracing is on (utils.profiling)."""
     R = B - A.matmat(X0)
     Z = _prec_apply(dinv, R)
     P = Z
@@ -95,6 +98,7 @@ def pcg(A, dinv, B: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
         rz_new = (R * Z).sum(dim=0)
         P = Z + _guarded_div(rz_new, rz) * P
         rz = rz_new
+    count("pcg.products", 1 + iters)
     return X
 
 

@@ -49,9 +49,10 @@ from ..probes import drag_probe, lift_probe
 from ..utils.profiling import count, span, tracing
 from .fused import FlowState, _dense64, compose_fused, fused_step, fused_step_df32
 
-__all__ = ["BandedCGOperators", "CGOperators", "DeviceOperators", "FlowState",
-           "IPCSConfig", "IPCSSolver", "build_cg_operators", "build_device_operators",
-           "build_fused_operators", "cg_matrices", "evolve_cg_n", "evolve_fused_df32_n",
+__all__ = ["BandedCGOperators", "CGOperators", "CGStepGraph", "DeviceOperators",
+           "FlowState", "IPCSConfig", "IPCSSolver", "build_cg_operators",
+           "build_device_operators", "build_fused_operators", "cg_matrices",
+           "evolve_cg_n", "evolve_fused_df32_n",
            "evolve_fused_n", "evolve_n", "ipcs_step", "ipcs_step_cg",
            "ipcs_step_cg_banded", "resolve_device"]
 
@@ -447,21 +448,35 @@ class CGOperators(NamedTuple):
 def ipcs_step_cg(dev: CGOperators, state: FlowState, u_star_prev: torch.Tensor,
                  iters_u: int, iters_m: int, p_refine: int):
     """One IPCS step with PCG velocity solves warm-started from the previous
-    step; returns (new_state, u_star, (drag, lift))."""
+    step; returns (new_state, u_star, (drag, lift)).
+
+    With tracing on (utils.profiling) each phase is a span, named as the
+    fused step's: step.convection; step.ustar (b1 and the A1 PCG);
+    step.pressure (b2, the dense inverse and its refinement); step.velocity
+    (b3 and the mass PCG); step.probes."""
     u_n, p_n = state
     ns = dev.A3bc_s.shape[0]
+    tr = tracing()
+    if tr:
+        tr.begin("step.convection")
     c = dev.conv(u_n)
+    if tr:
+        tr.next("step.ustar")
     # Step 1: tentative velocity.
     b1 = (dev.R1 @ u_n) + (dev.P1m @ p_n) - dev.rho * c
     b1 = b1 * dev.z_u + dev.t1
     u_star = pcg(dev.A1bc, dev.d1inv, b1[:, None], u_star_prev[:, None],
                  iters_u)[:, 0]
+    if tr:
+        tr.next("step.pressure")
     # Step 2: pressure correction, dense inverse plus refinement.
     b2 = (dev.Kp @ p_n) - (dev.BT @ u_star) / dev.dt
     b2 = b2 * dev.z_p + dev.t2
     p_new = dev.A2inv @ b2
     for _ in range(p_refine):
         p_new = p_new + dev.A2inv @ (b2 - dev.A2bc @ p_new)
+    if tr:
+        tr.next("step.velocity")
     # Step 3: velocity correction, both components as one two-column PCG.
     dp = p_new - p_n
     b3 = (dev.M @ u_star) - dev.dt * (dev.G @ dp)
@@ -470,9 +485,12 @@ def ipcs_step_cg(dev: CGOperators, state: FlowState, u_star_prev: torch.Tensor,
     X0 = torch.stack([u_star[:ns], u_star[ns:]], dim=1)
     Y = pcg(dev.A3bc_s, dev.d3inv, B3, X0, iters_m)
     u_new = torch.cat([Y[:, 0], Y[:, 1]])
-
+    if tr:
+        tr.next("step.probes")
     drag = dev.drag_u @ u_new + dev.drag_p @ p_new
     lift = dev.lift_u @ u_new + dev.lift_p @ p_new
+    if tr:
+        tr.end()
     return FlowState(u=u_new, p=p_new), u_star, (drag, lift)
 
 
@@ -523,15 +541,23 @@ def ipcs_step_cg_banded(dev: BandedCGOperators, state: FlowState,
                         u_star_prev: torch.Tensor, iters_u: int, iters_m: int,
                         p_refine: int):
     """ipcs_step_cg in the banded layout: 18 banded products a step at the
-    production iteration counts (6, 5), and 1 + p_refine ELL products."""
+    production iteration counts (6, 5), and 1 + p_refine ELL products.
+    Its phases are spans while tracing is on, as ipcs_step_cg's."""
     u_n, p_n = state
     ns = dev.A3bc_s.shape[0]
+    tr = tracing()
+    if tr:
+        tr.begin("step.convection")
     c = dev.conv(u_n)
+    if tr:
+        tr.next("step.ustar")
     # Step 1: tentative velocity.
     b1 = (dev.R1 @ u_n) + (dev.P1m_s @ _at_vertices(dev, p_n)) - dev.rho * c
     b1 = b1 * dev.z_u + dev.t1
     u_star = pcg(dev.A1bc, dev.d1inv, b1[:, None], u_star_prev[:, None],
                  iters_u)[:, 0]
+    if tr:
+        tr.next("step.pressure")
     # Step 2: pressure correction; B^T u* is read off at the vertices.
     bt = (dev.BT_s @ u_star)[dev.vert_pos]
     b2 = (dev.Kp @ p_n) - bt / dev.dt
@@ -539,30 +565,114 @@ def ipcs_step_cg_banded(dev: BandedCGOperators, state: FlowState,
     p_new = dev.A2inv @ b2
     for _ in range(p_refine):
         p_new = p_new + dev.A2inv @ (b2 - dev.A2bc @ p_new)
+    if tr:
+        tr.next("step.velocity")
     # Step 3: velocity correction, two-column scalar mass solves.
     V = u_star.view(ns, 2)
     b3 = dev.Ms.matmat(V).view(-1) - dev.dt * (dev.G_s @ _at_vertices(dev, p_new - p_n))
     b3 = b3 * dev.z_u + dev.t3
     Y = pcg(dev.A3bc_s, dev.d3inv, b3.view(ns, 2), V, iters_m)
     u_new = Y.view(-1)
-
+    if tr:
+        tr.next("step.probes")
     drag = dev.drag_u @ u_new + dev.drag_p @ p_new
     lift = dev.lift_u @ u_new + dev.lift_p @ p_new
+    if tr:
+        tr.end()
     return FlowState(u=u_new, p=p_new), u_star, (drag, lift)
 
 
+def _launch_counters():
+    """The kernels' launch counters that a CG step can move, as (function,
+    attribute) pairs."""
+    from ..ops.banded import banded_matmat
+    from ..ops.convection import convection_vector
+    from ..ops.sparse import ell_matmat
+
+    return [(banded_matmat, "launches"), (banded_matmat, "bf16_launches"),
+            (ell_matmat, "launches"), (convection_vector, "launches")]
+
+
+class CGStepGraph:
+    """One CG step of either layout, captured once as a CUDA graph.
+
+    The Python step issues ~350 kernels one host call at a time, so the
+    host, not the card, sets its pace.  Replaying the graph issues the same
+    kernels in the same order on the same shapes in one call: the bits are
+    the Python step's.  The graph reads the state from static buffers and
+    writes the new state back into them, and drag and lift into `probes`.
+    The launch counters move on each replay by what one step launches, as
+    the Python step moves them."""
+
+    def __init__(self, dev, state: FlowState, ustar: torch.Tensor, iters: tuple):
+        self.dev, self.iters = dev, iters
+        self.step = (ipcs_step_cg_banded if isinstance(dev, BandedCGOperators)
+                     else ipcs_step_cg)
+        self.u, self.p, self.ustar = state.u.clone(), state.p.clone(), ustar.clone()
+        self.probes = ustar.new_empty(2)
+        counters = _launch_counters()
+        before = [getattr(f, a) for f, a in counters]
+        # A first run on the capture's stream makes every lazy allocation
+        # (cuBLAS's workspace, the kernels' cached tables) before capture.
+        # It moves the buffers, which `run` overwrites.
+        side = torch.cuda.Stream(ustar.device)
+        side.wait_stream(torch.cuda.current_stream(ustar.device))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(ustar.device).wait_stream(side)
+        mid = [getattr(f, a) for f, a in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            self._body()
+        self.per_step = [(f, a, getattr(f, a) - m) for (f, a), m in zip(counters, mid)]
+        for (f, a), b in zip(counters, before):
+            setattr(f, a, b)
+
+    def _body(self):
+        state, ustar, (drag, lift) = self.step(
+            self.dev, FlowState(u=self.u, p=self.p), self.ustar, *self.iters)
+        self.u.copy_(state.u)
+        self.p.copy_(state.p)
+        self.ustar.copy_(ustar)
+        torch.stack([drag, lift], out=self.probes)
+
+    def run(self, state: FlowState, ustar: torch.Tensor, n_steps: int):
+        """evolve_cg_n's n_steps by replaying the graph."""
+        self.u.copy_(state.u)
+        self.p.copy_(state.p)
+        self.ustar.copy_(ustar)
+        probes = self.probes.new_empty(2, n_steps)
+        for i in range(n_steps):
+            self.graph.replay()
+            probes[:, i].copy_(self.probes)
+        for f, a, n in self.per_step:
+            setattr(f, a, getattr(f, a) + n * n_steps)
+        return (FlowState(u=self.u.clone(), p=self.p.clone()), self.ustar.clone(),
+                (probes[0], probes[1]))
+
+
 def evolve_cg_n(dev, state: FlowState, u_star0: torch.Tensor, n_steps: int,
-                iters_u: int, iters_m: int, p_refine: int):
+                iters_u: int, iters_m: int, p_refine: int, graphs: dict | None = None):
     """n_steps CG steps of either layout; returns (state, u_star,
     (drags, lifts)), drag and lift in preallocated device tensors, so the
-    loop never waits for the device."""
+    loop never waits for the device.  Counts its steps as `steps` while
+    tracing is on, as `_loop` does.
+
+    On the card with tracing off and a `graphs` dict (the solver's own),
+    the steps are replays of a CGStepGraph kept in it; while tracing, the
+    Python step runs, so that its phases are spans."""
+    iters = (iters_u, iters_m, p_refine)
+    if graphs is not None and u_star0.is_cuda and n_steps and not tracing():
+        if iters not in graphs:
+            graphs[iters] = CGStepGraph(dev, state, u_star0, iters)
+        return graphs[iters].run(state, u_star0, n_steps)
     step = ipcs_step_cg_banded if isinstance(dev, BandedCGOperators) else ipcs_step_cg
     drags = torch.empty(n_steps, dtype=dev.t1.dtype, device=dev.t1.device)
     lifts = torch.empty_like(drags)
     ustar = u_star0
     for i in range(n_steps):
-        state, ustar, (drags[i], lifts[i]) = step(dev, state, ustar, iters_u,
-                                                  iters_m, p_refine)
+        state, ustar, (drags[i], lifts[i]) = step(dev, state, ustar, *iters)
+    count("steps", n_steps)
     return state, ustar, (drags, lifts)
 
 
@@ -717,6 +827,7 @@ class IPCSSolver:
         self._pad = None
         self._u_export_idx = None
         self._cg_ustar = None
+        self._cg_graphs = {}  # CGStepGraph by iteration counts (evolve_cg_n)
         self.dev_lo = None
         if cfg.method == "cg":
             if cfg.precision not in ("f64", "f32"):
@@ -756,37 +867,45 @@ class IPCSSolver:
         self.ndofs_u = self.operators.V.ndofs
         self.ndofs_p = self.operators.Q.ndofs
 
-        if cfg.method == "cg":
-            self.work_dtype = self.pressure_dtype = (
-                torch.float64 if cfg.precision == "f64" else torch.float32)
-            self.dev, self._u_export_idx = build_cg_operators(
-                mesh, cfg, device=self.device, dtype=self.work_dtype,
-                assembled=assembled,
-            )
-            self.reset_warm_start()
-        elif self.fused:
-            self.work_dtype = self.pressure_dtype = torch.float32
-            with span("setup.compose"):
+        with span("setup.compose"):
+            if cfg.method == "cg":
+                self.work_dtype = self.pressure_dtype = (
+                    torch.float64 if cfg.precision == "f64" else torch.float32)
+                self.dev, self._u_export_idx = build_cg_operators(
+                    mesh, cfg, device=self.device, dtype=self.work_dtype,
+                    assembled=assembled,
+                )
+                self.reset_warm_start()
+            elif self.fused:
+                self.work_dtype = self.pressure_dtype = torch.float32
                 built, self.ndofs_u, self.ndofs_p, self._pad = build_fused_operators(
                     mesh, cfg, device=self.device, dtype=torch.float32,
                     split=cfg.precision == "df32", assembled=assembled,
                 )
-                if tracing() and self.device.type == "cuda":
-                    # The span holds the card's part of the composition.
-                    torch.cuda.synchronize(self.device)
-            if cfg.precision == "df32":
-                self.dev, self.dev_lo = built
+                if cfg.precision == "df32":
+                    self.dev, self.dev_lo = built
+                else:
+                    self.dev = built
             else:
-                self.dev = built
-        else:
-            self.work_dtype, self.pressure_dtype, _ = precision_dtypes(cfg.precision)
-            self.dev = build_device_operators(mesh, cfg, device=self.device,
-                                              assembled=assembled)
+                self.work_dtype, self.pressure_dtype, _ = precision_dtypes(cfg.precision)
+                self.dev = build_device_operators(mesh, cfg, device=self.device,
+                                                  assembled=assembled)
+            if tracing() and self.device.type == "cuda":
+                # The span holds the card's part of the composition.
+                torch.cuda.synchronize(self.device)
 
     def export_u(self, u):
         """A velocity vector in the canonical [ux; uy] layout (identity
         unless the banded CG layout's interleaved RCM order is active)."""
         return u if self._u_export_idx is None else u[self._u_export_idx]
+
+    def import_u(self, u):
+        """A velocity vector in the canonical [ux; uy] layout put into the
+        solver's own layout: the inverse of `export_u` (identity unless the
+        banded CG layout's interleaved RCM order is active)."""
+        if self._u_export_idx is None:
+            return u
+        return torch.empty_like(u).index_copy_(0, self._u_export_idx, u)
 
     def unpad_u(self, u):
         """Strip pad_quantum padding from a velocity dof vector."""
@@ -829,7 +948,7 @@ class IPCSSolver:
             if cfg.method == "cg":
                 state, self._cg_ustar, (drags, lifts) = evolve_cg_n(
                     self.dev, state, self._cg_ustar, n_steps, cfg.cg_iters_u,
-                    cfg.cg_iters_m, cfg.cg_pressure_refine,
+                    cfg.cg_iters_m, cfg.cg_pressure_refine, graphs=self._cg_graphs,
                 )
             elif self.dev_lo is not None:
                 state, (drags, lifts) = evolve_fused_df32_n(self.dev, self.dev_lo,
@@ -853,8 +972,9 @@ class IPCSSolver:
         every `save_steps` steps, snapshot (u, p, drag, lift) — drag/lift
         sampled from the state just computed.  Snapshots are exported in the
         [ux; uy] layout; `state` stays in the solver's own layout so that it
-        can continue evolve().  With the CG method and an explicit `state`,
-        call reset_warm_start() first if the state does not continue the
+        can continue evolve(): a velocity in [ux; uy] enters it through
+        `import_u`.  With the CG method and an explicit `state`, call
+        reset_warm_start() first if the state does not continue the
         solver's previous trajectory."""
         if state is None:
             state = self.initial_state()

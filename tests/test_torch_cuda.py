@@ -1015,6 +1015,103 @@ def test_bf16_cg_step_launches(cuda):
     assert torch.isfinite(d).all() and torch.isfinite(l).all()
 
 
+@pytest.mark.cuda
+def test_cg_step_counts_and_kernel_names_at_the_finest_ys930_step(cuda):
+    """The benchmark's CG cell on the card (f32 config of _bf16_config with
+    f32 blocks): with tracing on, a step counts 18 `banded.launches` and 13
+    `pcg.products`, and the banded and ELL kernels' device events carry
+    the names that portbench reads from the `__global__` lines, so
+    `torch_ops_device_ms_per_step` does not count them as torch ops."""
+    import dataclasses
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from meshdqn_tpu_torch.solver import IPCSSolver
+    from meshdqn_tpu_torch.utils import profiling
+    from portbench.devtrace import is_kernel, port_kernels
+
+    cfg = dataclasses.replace(_bf16_config(), cg_banded_dtype="f32")
+    s = IPCSSolver(_finest_ys930(), cfg, device=cuda)
+    state = s.initial_state()
+    steps = 3
+    profiling.take_trace()
+    profiling.trace_on()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, d, l = s.evolve(state, steps)
+            torch.cuda.synchronize()
+    finally:
+        profiling.trace_off()
+    _, counts = profiling.take_trace()
+    assert counts["steps"] == steps
+    assert counts["banded.launches"] == 18 * steps
+    assert counts["pcg.products"] == 13 * steps
+    assert torch.isfinite(d).all() and torch.isfinite(l).all()
+    names = port_kernels(pathlib.Path(__file__).resolve().parents[1])
+    assert {"banded_tiles_kernel", "ell_kernel"} <= names
+    from torch.autograd import DeviceType
+
+    device_events = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    for kernel in ("banded_tiles_kernel", "ell_kernel"):
+        assert any(is_kernel(name, kernel) for name in device_events), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["banded", "ell"])
+def test_cg_step_graph_equals_the_python_step(cuda, layout):
+    """With tracing off a CG solver on the card replays its captured step
+    (CGStepGraph); with tracing on it runs the Python step.  Over two evolve
+    calls from a seeded start both give the same drags, lifts, state and
+    warm start bit for bit, the graph moves the launch counters by the
+    Python step's launches, and a state that evolve returned stays as it
+    was while the graph runs on."""
+    import dataclasses
+
+    from meshdqn_tpu_torch.ops import banded as bd
+    from meshdqn_tpu_torch.ops import convection as cv
+    from meshdqn_tpu_torch.ops import sparse
+    from meshdqn_tpu_torch.solver import IPCSSolver
+    from meshdqn_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(_bf16_config(), cg_banded_dtype="f32", cg_layout=layout)
+    s = IPCSSolver(_finest_ys930(), cfg, device=cuda)
+    g = torch.Generator().manual_seed(18)
+    u0 = (0.01 * torch.randn(s.ndofs_u, generator=g)).to(cuda)
+    counters = lambda: (bd.banded_matmat.launches, sparse.ell_matmat.launches,  # noqa: E731
+                        cv.convection_vector.launches)
+
+    def run(trace):
+        s.reset_warm_start()
+        state = s.initial_state()._replace(u=u0.clone())
+        if trace:
+            profiling.trace_on()
+        try:
+            before = counters()
+            mid, d1, l1 = s.evolve(state, 7)
+            kept = (mid.u.clone(), mid.p.clone())
+            state, d2, l2 = s.evolve(mid, 5)
+            torch.cuda.synchronize()
+            made = tuple(b - a for a, b in zip(before, counters()))
+        finally:
+            profiling.trace_off()
+            profiling.take_trace()
+        assert torch.equal(mid.u, kept[0]) and torch.equal(mid.p, kept[1])
+        return (torch.cat([d1, d2]), torch.cat([l1, l2]), state.u, state.p,
+                s._cg_ustar.clone()), made
+
+    eager, eager_made = run(trace=True)
+    assert not s._cg_graphs
+    graph, graph_made = run(trace=False)
+    assert list(s._cg_graphs) == [(6, 5, 1)]
+    again, _ = run(trace=False)
+    assert graph_made == eager_made
+    assert eager_made[2] == 12 and eager_made[0 if layout == "banded" else 1] > 0
+    for a, b, c in zip(eager, graph, again):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    assert torch.isfinite(graph[0]).all()
+
+
 # --------------------------------------------------------------------------
 # The convection kernel (csrc/convection.cu, ops/convection.py
 # convection_vector) against its plain version, the torch twin, on the
