@@ -70,7 +70,7 @@ The kernels are built from source at first use.  Phases, one JSON line each
 
   device     nvidia-smi's name and power limit, the device name, and the
              device-memory, f32 and f64 peaks used for the bounds
-  build      nvcc of the four kernel sources, started together
+  build      nvcc of the kernel sources (csrc/*.cu), started together
   kernels    each kernel at each shape its paths give it (the CG kernels
              on both finest meshes): held against its plain
              torch version (||y - plain|| / ||plain|| within
@@ -106,7 +106,16 @@ The kernels are built from source at first use.  Phases, one JSON line each
              kernel (csrc/convection.cu, no TPU kernel behind it) on both
              packs and the benchmark's padded mesh, f32 and f64, within
              twice the torch twin's gap to a host f64 evaluation plus four
-             ulps, timed beside the twin
+             ulps, timed beside the twin.  The fused PCG (ops/cg.py
+             pcg_fused: the banded kernel's PCG instances and
+             csrc/pcg.cu's pcg_update_kernel, no TPU kernel behind it) at
+             the production step's two solves on both finest meshes: one
+             launch of each a product, the same bits twice, the gap to an
+             f64 CPU solve within twice pcg_reference's on the card; the
+             update launches of a step each timed alone beside their
+             bound (the blocks and vectors they move), and the step's two
+             solves timed as CUDA graphs through pcg_fused and
+             pcg_reference
   solve      per pack: the fused f32 solve from rest with the launch
              counters zeroed (3 grouped launches and one convection call a
              step and no single launch, asserted); drag/lift within 1e-3 of
@@ -126,8 +135,9 @@ The kernels are built from source at first use.  Phases, one JSON line each
              by side
   cg_solve   per finest mesh, through scripts/torch_cg_gate.py: the
              production CG solve, 25 warm-up steps, then 5000 steps from
-             rest with the counters zeroed (18 banded and 2 ELL launches a
-             step, asserted, and no plain-version call); final drag and lift
+             rest with the counters zeroed (18 banded, 13 PCG update and 2
+             ELL launches a step, asserted, and no plain-version call);
+             final drag and lift
              within 1e-3 of the f64 oracle row of docs/examples/
              gen_finest_f64cg_oracle.csv picked by the mesh's sha8
   scripts bf16_gate (ys930, after its cg_solve): the bf16 arm of
@@ -154,8 +164,9 @@ The kernels are built from source at first use.  Phases, one JSON line each
              ys930 0.30, 0.10, 0.095 and ah93w145 0.30, 0.09, 0.085 through
              the script's row_config and solve_row (a warm evolve of 1000
              steps, then 5000 from rest), the counters zeroed just before
-             (3 grouped launches a step fused, 18 banded and 2 ELL a step
-             CG, asserted), final drag within 1e-3 of the r4 CSV row with
+             (3 grouped launches a step fused, 18 banded, 13 PCG update and
+             2 ELL a step CG, asserted), final drag within 1e-3 of the r4
+             CSV row with
              the same vertex count (lift printed), set-up s, ms/step, bytes
              a step and GB/s; 50 profiled steps of ys930 0.10 (path
              sweep_fused); then the kernels phase's checks at these rows'
@@ -827,7 +838,7 @@ def profile_steps(solver, state, path, n=50):
     # The port's own kernels, each summed over its template instances.
     ours = {k: sum(v for name, v in by_name.items() if k in name) / n
             for k in ("group_kernel", "group_batched_kernel", "cols_kernel",
-                      "banded_tiles_kernel", "ell_kernel")}
+                      "banded_tiles_kernel", "ell_kernel", "pcg_update_kernel")}
     # device_busy_share is measured in the profiled window, where the
     # profiler also slows the host.
     unprofiled_ms = start.elapsed_time(end)
@@ -1243,13 +1254,13 @@ NO_LAUNCHES = {"matvec": 0, "matvec_dual": 0, "step_ustar": 0, "step_pressure": 
                "ell_matmat": 0,
                "banded_plain_calls": 0, "ell_plain_calls": 0,
                "step_ustar_batched": 0, "step_pressure_batched": 0,
-               "step_velocity_batched": 0}
+               "step_velocity_batched": 0, "pcg_update": 0}
 GROUPED = ("step_ustar", "step_pressure", "step_velocity")
 SPLIT = ("step_ustar_df32", "step_pressure_df32", "step_velocity_df32")
 
 
 def zero_counters():
-    from meshdqn_tpu_torch.ops import banded, matvec, sparse
+    from meshdqn_tpu_torch.ops import banded, cg, matvec, sparse
 
     for fn in (matvec.matvec, matvec.matvec_dual, banded.banded_matmat,
                sparse.ell_matmat, *(getattr(matvec, k) for k in GROUPED + SPLIT)):
@@ -1259,10 +1270,11 @@ def zero_counters():
     banded.banded_matmat.bf16_launches = 0
     banded.banded_matmat_reference.calls = 0
     sparse.ell_matmat_reference.calls = 0
+    cg.pcg_update.launches = 0
 
 
 def read_counters():
-    from meshdqn_tpu_torch.ops import banded, matvec, sparse
+    from meshdqn_tpu_torch.ops import banded, cg, matvec, sparse
 
     return {"matvec": matvec.matvec.launches,
             "matvec_dual": matvec.matvec_dual.launches,
@@ -1274,7 +1286,8 @@ def read_counters():
             "ell_matmat": sparse.ell_matmat.launches,
             "banded_plain_calls": banded.banded_matmat_reference.calls,
             "ell_plain_calls": sparse.ell_matmat_reference.calls,
-            **{f"{k}_batched": getattr(matvec, k).batched_launches for k in GROUPED}}
+            **{f"{k}_batched": getattr(matvec, k).batched_launches for k in GROUPED},
+            "pcg_update": cg.pcg_update.launches}
 
 
 def csr_tensor(A, device, dtype):
@@ -1535,6 +1548,118 @@ def check_cg_kernels(cuda, meshes, pk, flush, production_only=False, **tag):
     return summary
 
 
+# The PCG solves of one production step: (operator, m, iterations).
+STEP_PCG = [("A1bc", 1, PRODUCTION["cg_iters_u"]), ("A3bc_s", 2, PRODUCTION["cg_iters_m"])]
+
+
+def graph_ms(fn, flush):
+    """time_ms of fn's launches captured as one CUDA graph: the device's time
+    for them, none of the host's time to issue them (pcg_reference issues
+    ~21 ops an iteration, more than time_ms's spin covers)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    return time_ms(graph.replay, flush)
+
+
+def check_pcg(cuda, meshes, pk, flush):
+    """The fused PCG (ops/cg.py pcg_fused) at the production step's two
+    solves on each finest mesh, from a seeded start (B the image of a
+    random X, X0 a tenth of another): 1 + iters launches of the banded
+    kernel's PCG instances and of pcg_update_kernel, the same bits twice,
+    the gap to pcg in f64 on the host within twice pcg_reference's on the
+    card (both f32 PCG, apart by the order of their sums).  Then each kind
+    of update launch (a solve's start, an iteration, the last iteration,
+    which updates X alone) timed alone at the step's shapes beside its
+    bound: the blocks it reads (none in the last iteration) and the
+    vectors and partials it moves, at the card's memory rate; and the
+    step's two solves as CUDA graphs through pcg_fused and pcg_reference.
+    Returns the summary over one ys930 step: ms sums the step's 13 update
+    launches, plain_ms and fused_solve_ms the two solves' graphs."""
+    from meshdqn_tpu_torch.ops import cg
+    from meshdqn_tpu_torch.ops import matvec as mv
+    from meshdqn_tpu_torch.ops.banded import BandedMatrix, banded_matmat, product_blocks
+    from meshdqn_tpu_torch.solver import IPCSConfig
+    from meshdqn_tpu_torch.solver.ipcs import cg_matrices
+
+    nb, f64 = PRODUCTION["cg_block_size"], torch.float64
+    summary = None
+    worst = 0.0
+    for airfoil, mesh in meshes.items():
+        mats = cg_matrices(mesh, IPCSConfig(**PRODUCTION))["matrices"]
+        step = {"ms": 0.0, "plain_ms": 0.0, "fused_solve_ms": 0.0, "bound_ms": 0.0}
+        for op, m, iters in STEP_PCG:
+            A = mats[op]
+            n = A.shape[0]
+            bm = BandedMatrix.from_scipy(A, device=cuda)
+            dinv = cg.block_jacobi_inv(A, nb, device=cuda)
+            g = torch.Generator().manual_seed(n + m)
+            X0 = 0.1 * torch.randn(n, m, generator=g)
+            B = torch.tensor(A @ torch.randn(n, m, generator=g).double().numpy()).float()
+            Bc, X0c = B.to(cuda), X0.to(cuda)
+            before = (banded_matmat.launches, cg.pcg_update.launches)
+            X = cg.pcg(bm, dinv, Bc, X0c, iters)
+            made = (banded_matmat.launches - before[0], cg.pcg_update.launches - before[1])
+            if made != (1 + iters, 1 + iters):
+                raise AssertionError(f"pcg {airfoil} {op}: launches {made}")
+            if not torch.equal(X, cg.pcg(bm, dinv, Bc, X0c, iters)):
+                raise AssertionError(f"pcg {airfoil} {op}: bits differ between runs")
+            Xr = cg.pcg_reference(bm, dinv, Bc, X0c, iters)
+            X64 = cg.pcg(BandedMatrix.from_scipy(A, device="cpu", dtype=f64),
+                         cg.block_jacobi_inv(A, nb, device="cpu", dtype=f64), B.double(),
+                         X0.double(), iters)
+            gap = mv.relative_gap(X.double().cpu(), X64)
+            gap_ref = mv.relative_gap(Xr.double().cpu(), X64)
+            if not gap <= 2 * gap_ref:
+                raise AssertionError(f"pcg {airfoil} {op}: gap to f64 {gap:.3g} above twice "
+                                     f"pcg_reference's {gap_ref:.3g}")
+            worst = max(worst, (X - Xr).abs().max().item())
+            # Each kind of update launch alone, on operands of the step's shapes.
+            n_rz, n_pap = cg.update_partials(dinv), product_blocks(bm)
+            vec = lambda: torch.randn(n, m, device=cuda)  # noqa: E731
+            Xa, Pa, APa, Ra, Rb, Za = (vec() for _ in range(6))
+            pap = torch.ones(m, n_pap, device=cuda)
+            rz_in, rz_out = torch.ones(m, n_rz, device=cuda), torch.empty(m, n_rz, device=cuda)
+            kinds = {
+                "start": (1, dict(update=False, precondition=True), 2),
+                "iteration": (iters - 1, dict(update=True, precondition=True), 7),
+                "last": (1, dict(update=True, precondition=False), 3),
+            }
+            blocks = dinv.inv_blocks.numel() * 4
+            launches = {}
+            for kind, (count, kw, vectors) in kinds.items():
+                ms = time_ms(lambda: cg.pcg_update(dinv, Xa, Xa, Pa, APa, Ra, Rb, Za, pap,
+                                                   rz_in, rz_out, **kw), flush)
+                nbytes = (blocks if kw["precondition"] else 0) + vectors * n * m * 4 + \
+                    4 * m * ((n_pap + n_rz) * kw["update"] + n_rz * kw["precondition"])
+                bound = nbytes / pk[0] * 1e3 if pk[0] else None
+                launches[kind] = {"count": count, "ms": ms, "bound_ms": bound,
+                                  "MB": nbytes / 1e6}
+                step["ms"] += count * ms
+                step["bound_ms"] = None if bound is None or step["bound_ms"] is None \
+                    else step["bound_ms"] + count * bound
+            fused_ms = graph_ms(lambda: cg.pcg(bm, dinv, Bc, X0c, iters), flush)
+            plain_ms = graph_ms(lambda: cg.pcg_reference(bm, dinv, Bc, X0c, iters), flush)
+            step["fused_solve_ms"] += fused_ms
+            step["plain_ms"] += plain_ms
+            emit({"phase": "kernels", "kernel": "pcg_update", "airfoil": airfoil, "op": op,
+                  "shape": [n, m], "iters": iters, "nb": nb, "gap_to_f64": gap,
+                  "reference_gap_to_f64": gap_ref,
+                  "max_abs_err_vs_reference": (X - Xr).abs().max().item(),
+                  "update_launches": launches, "fused_solve_ms": fused_ms,
+                  "reference_solve_ms": plain_ms})
+            del bm, dinv
+        if summary is None:
+            summary = step
+    return dict(summary, library_ms=None, max_abs_err=worst,
+                bound_by="bytes" if summary["bound_ms"] is not None else None)
+
+
 def timed_solve(solver, steps, save):
     """solve() from rest with every counter zeroed just before; returns
     (output, device ms/step, host ms/step, counters read just after)."""
@@ -1597,7 +1722,8 @@ def cg_solve(cuda, name, mesh, oracle, pk):
         raise AssertionError(f"{name}: the script solved another mesh ({res['mesh_sha8']})")
     if any(getattr(solver.config, k) != v for k, v in PRODUCTION.items()):
         raise AssertionError(f"{name}: the script's config is not the production config")
-    expect = {**NO_LAUNCHES, "banded_matmat": 18 * STEPS, "ell_matmat": 2 * STEPS}
+    expect = {**NO_LAUNCHES, "banded_matmat": 18 * STEPS, "pcg_update": 13 * STEPS,
+              "ell_matmat": 2 * STEPS}
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
     check_finite(name, solver, out)
@@ -2050,7 +2176,8 @@ def sweep_solve(cuda, sweep, name, res, r4, pk):
     solver, out = row["solver"], row["out"]
     steps = SAVE + STEPS
     if cfg.method == "cg":
-        expect = {**NO_LAUNCHES, "banded_matmat": 18 * steps, "ell_matmat": 2 * steps}
+        expect = {**NO_LAUNCHES, "banded_matmat": 18 * steps, "pcg_update": 13 * steps,
+                  "ell_matmat": 2 * steps}
     else:
         expect = {**NO_LAUNCHES, **{k: steps for k in GROUPED}}
     if counts != expect:
@@ -3441,6 +3568,8 @@ def main(argv=None) -> int:
     check_convection(cuda, {n: p[0] for n, p in packs.items()}, pk, flush)
     summary.update(check_cg_kernels(cuda, {n: f[0] for n, f in finest.items()},
                                     pk, flush))
+    # No TPU kernel behind it; it carries the production CG step's PCG.
+    summary["pcg_update"] = check_pcg(cuda, {n: f[0] for n, f in finest.items()}, pk, flush)
     summary["ell_matmat"]["unfused_steps"] = check_unfused_ell(cuda, packs, pk, flush)
     del flush
 
@@ -3501,7 +3630,7 @@ def main(argv=None) -> int:
     for name, (mesh, oracle) in finest.items():
         solver, out, row = cg_solve(cuda, name, mesh, oracle, pk)
         cg_rows[name] = (out, row["ms_per_step"])
-        for k in ("banded_matmat", "ell_matmat"):
+        for k in ("banded_matmat", "ell_matmat", "pcg_update"):
             launches[k] += row["launches"][k]
             by_path[k]["cg_solve"] = by_path[k].get("cg_solve", 0) + row["launches"][k]
         if name == AIRFOILS[0]:
@@ -3531,6 +3660,8 @@ def main(argv=None) -> int:
         launches[k] += counted[k]
         by_path[k]["sweep"] = counted[k]
         summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], sweep_err[k])
+    launches["pcg_update"] += counted["pcg_update"]
+    by_path["pcg_update"]["sweep"] = counted["pcg_update"]
     for k in GROUPED:
         by_form[k] += counted[k]
 
@@ -3596,7 +3727,7 @@ def main(argv=None) -> int:
            "matvec_group_df32": "matvec", "matvec_cols": "matvec",
            "matvec_group_batched": "matvec", "banded_matmat": "banded",
            "banded_matmat_bf16": "banded",
-           "ell_matmat": "ell"}
+           "ell_matmat": "ell", "pcg_update": "pcg"}
     replaces = {"matvec": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_group": "meshdqn_tpu/ops/pallas_kernels.py:124",
                 "matvec_cols": "meshdqn_tpu/ops/pallas_kernels.py:124",
@@ -3605,7 +3736,9 @@ def main(argv=None) -> int:
                 "matvec_dual": "meshdqn_tpu/ops/pallas_kernels.py:134",
                 "banded_matmat": "meshdqn_tpu/ops/pallas_kernels.py:250",
                 "banded_matmat_bf16": "scripts/banded_formulation_bench.py:180",
-                "ell_matmat": "meshdqn_tpu/ops/pallas_kernels.py:39"}
+                "ell_matmat": "meshdqn_tpu/ops/pallas_kernels.py:39",
+                "pcg_update": "none: the JAX package's block-Jacobi product is an einsum "
+                              "and its PCG algebra plain jnp (meshdqn_tpu/ops/cg.py)"}
     # The banded kernel also takes the aligned layout (its bf16 instance is
     # banded_matmat_bf16).
     also = {"banded_matmat": ["meshdqn_tpu/ops/pallas_kernels.py:318"]}
@@ -3636,7 +3769,11 @@ def main(argv=None) -> int:
             "ell_matmat": "sums over the 2 ELL applies of one ys930 finest "
                           "production CG step (f32); oracle_step sums the 54 of "
                           "one ys930 finest f64 oracle step, unfused_steps the "
-                          "6 or 8 of one ys930 pack step of each unfused mode"}
+                          "6 or 8 of one ys930 pack step of each unfused mode",
+            "pcg_update": "sums over the 13 update launches of one ys930 finest "
+                          "production CG step, each timed alone; plain_ms times "
+                          "the step's two solves through pcg_reference and "
+                          "fused_solve_ms through pcg_fused, each as a CUDA graph"}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": f"meshdqn_tpu_torch/csrc/{src[k]}.cu",
          "replaces": replaces[k], "also_replaces": also.get(k, []),
@@ -3647,7 +3784,7 @@ def main(argv=None) -> int:
          "library_ms": s["library_ms"],
          **{k: s[k] for k in ("read_bound_ms", "nnz_bound_ms", "stored_bound_ms",
                               "composed_ms", "singles_ms", "f32_grouped_ms",
-                              "oracle_step", "unfused_steps") if k in s},
+                              "oracle_step", "unfused_steps", "fused_solve_ms") if k in s},
          **({"launches_by_form": by_form} if k == "matvec_group" else {}),
          **({"launches_by_form": by_split} if k == "matvec_group_df32" else {}),
          **({"launches_by_form": by_batched_form} if k == "matvec_group_batched"

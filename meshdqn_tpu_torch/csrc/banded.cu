@@ -59,6 +59,25 @@
 //     reduced by a fixed xor-shuffle tree (4, 2, 1); no atomics and no split
 //     of a row across warps, so results repeat bit for bit.
 //
+// The PCG iteration's products (banded_pcg_f32, f32 blocks, square
+// operators; ops/cg.py pcg_fused) are two more instances of the same kernel,
+// so every product of the step stays in banded_tiles_kernel:
+//   * residual:  Y = B - A X0, the first product of a solve (X is X0);
+//   * direction: X is Z, the preconditioned residual.  While its copies and
+//     first tiles fly, the block sums the last update's r.z partials
+//     (csrc/pcg.cu) and the ones before them in one fixed order, one warp a
+//     sum, for beta = rz / rz_old per column (0 where rz_old <= 0, as pcg's
+//     guard).  It stages the windows of Z and of the old direction side by
+//     side and combines them there into P = Z + beta P_old, the product's
+//     x.  It writes P for its own rows (from Z and P_old loaded at the
+//     start, the same operands and rounding) into the other buffer of a
+//     pair, so no block reads rows another block writes; then Y = A P, and
+//     one p.Ap partial a block and column, summed in a fixed order.  With
+//     no old direction (a solve's first), P = Z.
+//   The products' sums are the plain instance's: A P has the bits of
+//   banded_matmat_f32 on the same P.  P = Z + beta P_old and B - A X0 round
+//   as torch's elementwise ops do (a multiply, then an add).
+//
 // Plain C interface for ctypes; each entry point returns cudaGetLastError()
 // after its launch (0 on success).  The caller allocates Y and owns the
 // stream; nothing here synchronises or allocates.
@@ -80,6 +99,54 @@ constexpr int kUnroll = 3;  // tiles of each of a lane's two lists in flight
 constexpr int kMaxSmemBytes = 232448;
 
 struct bf16_bits {};  // tag: blocks hold bf16 bit patterns (uint16_t)
+
+// What a launch adds to the product (the header): kProduct, the plain
+// Y = A X; kResidual and kDirection, the PCG iteration's (f32 only).
+enum PcgMode { kProduct = 0, kResidual = 1, kDirection = 2 };
+
+// The PCG instances' operands; partials are [M][count], column-major.
+struct PcgArgs {
+  const float* B;       // kResidual: Y = B - A X0
+  const float* P_old;   // kDirection: the old direction, or null (P = Z)
+  float* P_new;         // kDirection: P, the block's own rows
+  const float* rz;      // kDirection: the last update's r.z partials
+  const float* rz_old;  // kDirection: the update's before it
+  float* pap;           // kDirection: one p.Ap partial a block and column
+  int n_rz;             // r.z partials a column
+};
+
+// p[0] + p[1] + ... + p[n-1] in one fixed order, by one warp: lane l adds
+// p[l], p[l + 32], ... in turn (up to 32 loads in flight, so a sum of up to
+// 1024 partials waits for one round trip), then a fixed xor tree; every lane
+// ends with the same bits.  csrc/pcg.cu sums the same r.z partials with a
+// copy of this function, so alpha and beta read one r.z.
+__device__ __forceinline__ float warp_sum_fixed(const float* p, int n) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int i0 = 0; i0 < n; i0 += 32 * 32) {
+    float v[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int i = i0 + lane + 32 * u;
+      v[u] = i < n ? p[i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u) s += v[u];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// num / den where den > 0, else 0: pcg's _guarded_div.
+__device__ __forceinline__ float guarded_div(float num, float den) {
+  return den > 0.f ? __fdiv_rn(num, den) : 0.f;
+}
+
+// P = Z + beta P_old, rounded as torch rounds it (a multiply, then an add).
+__device__ __forceinline__ float direction(float z, float beta, float p_old) {
+  return __fadd_rn(z, __fmul_rn(beta, p_old));
+}
 
 // Per block type: the accumulation type, and how a 16-byte load of tiles
 // unpacks into N accumulation-type values.
@@ -219,13 +286,24 @@ __device__ __forceinline__ void copy_async(TA* dst, const TA* src, bool in) {
 // Launched with blockDim.x = 32 * (warps per block), a divisor of
 // R / kWarpRows: the rows of a block's warps lie in one row block and share
 // its x window.  kRound: bf16 blocks in the plain layout (the header).
-template <typename Tag, int M, bool kRound>
+// kPcg: a PcgMode; the PCG modes take f32 blocks and square operators.
+template <typename Tag, int M, bool kRound, int kPcg>
 __global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
     const uint4* __restrict__ tiles, const int* __restrict__ offsets,
     const int* __restrict__ cols, const typename Blocks<Tag>::acc* __restrict__ X,
     typename Blocks<Tag>::acc* __restrict__ Y, int R, int W, int g, int pad, int aligned,
-    int n_rows, int n_cols, int n_tiles) {
+    int n_rows, int n_cols, int n_tiles, PcgArgs pcg) {
   using TA = typename Blocks<Tag>::acc;
+  static_assert(kPcg == kProduct || std::is_same<Tag, float>::value,
+                "the PCG instances take f32 blocks");
+  // kDirection: the r.z sums (rz, then rz_old, per column), then each
+  // warp's p.Ap per column (in the PCG instances alone, so the plain ones
+  // keep all their shared memory).
+  float* pcg_s = nullptr;
+  if constexpr (kPcg == kDirection) {
+    __shared__ float direction_s[2 * M + kWarpsPerBlock * M];
+    pcg_s = direction_s;
+  }
   const long long n_elem = static_cast<long long>(n_cols) * M;
   const int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);  // warp's rows
   const long long row0 = static_cast<long long>(q) * kWarpRows;
@@ -238,6 +316,19 @@ __global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
   // The offsets are read first: everything else waits on them.  A warp
   // past the last row (in the last block only) keeps empty lists.
   const long long ra = row0 + (lane >> 3), rb = ra + kWarpRows / 2;
+  // kDirection: Z and the old direction at the lane's rows, for its rows
+  // of P, on their way from the start.
+  const bool has_prev = kPcg == kDirection && pcg.P_old != nullptr;
+  float za[M], zb[M], qa[M], qb[M];
+  if constexpr (kPcg == kDirection) {
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      za[c] = ra < n_rows ? X[ra * M + c] : 0.f;
+      zb[c] = rb < n_rows ? X[rb * M + c] : 0.f;
+      qa[c] = has_prev && ra < n_rows ? pcg.P_old[ra * M + c] : 0.f;
+      qb[c] = has_prev && rb < n_rows ? pcg.P_old[rb * M + c] : 0.f;
+    }
+  }
   int lo_a = 0, hi_a = 0, lo_b = 0, hi_b = 0;
   if (row0 < n_rows) {  // clamped, so even a malformed index reads inside
     lo_a = min(max(offsets[ra], 0), n_tiles);
@@ -250,10 +341,14 @@ __global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
   // memory while the offsets and the first tiles are on their way.
   extern __shared__ __align__(16) unsigned char smem[];
   TA* xs = reinterpret_cast<TA*>(smem);  // [W][M]: the window, interleaved as X
+  // kDirection: the old direction's window beside it, [W][M].
   for (int e = threadIdx.x; e < W * M; e += blockDim.x) {
     const long long k = start * M + e;
     const bool in = k >= 0 && k < n_elem;
     copy_async(xs + e, in ? X + k : X, in);
+    if constexpr (kPcg == kDirection) {
+      if (has_prev) copy_async(xs + W * M + e, in ? pcg.P_old + k : pcg.P_old, in);
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::);
 
@@ -275,11 +370,35 @@ __global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
     }
   };
   load_chunk(0);
+  // kDirection: the r.z sums while the copies and the tiles fly, one warp
+  // a sum.
+  if constexpr (kPcg == kDirection) {
+    if (has_prev) {
+      const int warps = blockDim.x >> 5;
+      for (int q = threadIdx.x >> 5; q < 2 * M; q += warps) {
+        const float sum = warp_sum_fixed((q < M ? pcg.rz : pcg.rz_old) + (q % M) * pcg.n_rz,
+                                         pcg.n_rz);
+        if (lane == 0) pcg_s[q] = sum;
+      }
+    }
+  }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   if constexpr (kRound) {  // each thread rounds the values it copied
     for (int e = threadIdx.x; e < W * M; e += blockDim.x) xs[e] = round_bf16(xs[e]);
   }
   __syncthreads();
+  // kDirection: beta per column, the same bits in every thread, and the
+  // window of P (e and k = start*M + e share the column).
+  float beta[M];
+  if constexpr (kPcg == kDirection) {
+#pragma unroll
+    for (int c = 0; c < M; ++c) beta[c] = has_prev ? guarded_div(pcg_s[c], pcg_s[M + c]) : 0.f;
+    if (has_prev) {
+      for (int e = threadIdx.x; e < W * M; e += blockDim.x)
+        xs[e] = direction(xs[e], beta[e % M], xs[W * M + e]);
+      __syncthreads();
+    }
+  }
 
   TA acc_a[M], acc_b[M];
 #pragma unroll
@@ -306,41 +425,102 @@ __global__ void __launch_bounds__(kThreads) banded_tiles_kernel(
       acc_b[c] += __shfl_xor_sync(0xffffffffu, acc_b[c], off);
     }
   }
-  if (chunk == 0) {
+  if constexpr (kPcg == kProduct) {
+    if (chunk == 0) {
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        if (ra < n_rows) Y[ra * M + c] = acc_a[c];
+        if (rb < n_rows) Y[rb * M + c] = acc_b[c];
+      }
+    }
+  } else if constexpr (kPcg == kResidual) {
+    if (chunk == 0) {
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        if (ra < n_rows) Y[ra * M + c] = __fsub_rn(pcg.B[ra * M + c], acc_a[c]);
+        if (rb < n_rows) Y[rb * M + c] = __fsub_rn(pcg.B[rb * M + c], acc_b[c]);
+      }
+    }
+  } else {
+    // P at the lane's rows, as the window holds it (the same operands and
+    // rounding, from the values loaded at the start), then the warp's p.Ap:
+    // every lane of a row holds its total, so the tree over the four rows'
+    // groups (8, 16) leaves every lane with the warp's sum.
+    float v[M];
 #pragma unroll
     for (int c = 0; c < M; ++c) {
-      if (ra < n_rows) Y[ra * M + c] = acc_a[c];
-      if (rb < n_rows) Y[rb * M + c] = acc_b[c];
+      const float pa = has_prev ? direction(za[c], beta[c], qa[c]) : za[c];
+      const float pb = has_prev ? direction(zb[c], beta[c], qb[c]) : zb[c];
+      if (chunk == 0) {
+        if (ra < n_rows) {
+          Y[ra * M + c] = acc_a[c];
+          pcg.P_new[ra * M + c] = pa;
+        }
+        if (rb < n_rows) {
+          Y[rb * M + c] = acc_b[c];
+          pcg.P_new[rb * M + c] = pb;
+        }
+      }
+      v[c] = __fmaf_rn(pb, acc_b[c], __fmul_rn(pa, acc_a[c]));
+      v[c] += __shfl_xor_sync(0xffffffffu, v[c], 8);
+      v[c] += __shfl_xor_sync(0xffffffffu, v[c], 16);
+    }
+    float* part_s = pcg_s + 2 * M;  // [warp][M]
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < M; ++c) part_s[warp * M + c] = v[c];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int warps = blockDim.x >> 5;
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        float s = part_s[c];
+        for (int w = 1; w < warps; ++w) s += part_s[w * M + c];
+        pcg.pap[c * gridDim.x + blockIdx.x] = s;
+      }
     }
   }
 }
 
-template <typename Tag, int M, bool kRound>
+// The blocks of one launch over n_rows rows of R-row blocks, and the
+// threads of each: the largest of 4, 2, 1 warps that divides the warps of a
+// row block (ops/banded.py product_blocks counts them the same way).
+struct Grid {
+  int blocks, threads;
+};
+Grid grid_of(int R, int n_rows) {
+  int per_block = kWarpsPerBlock;
+  while ((R / kWarpRows) % per_block != 0) per_block /= 2;
+  const int warps = (n_rows + kWarpRows - 1) / kWarpRows;
+  return {(warps + per_block - 1) / per_block, 32 * per_block};
+}
+
+template <typename Tag, int M, bool kRound, int kPcg = kProduct>
 cudaError_t launch_m(const uint4* tiles, const int* offsets, const int* cols,
                      const typename Blocks<Tag>::acc* X,
                      typename Blocks<Tag>::acc* Y, int R, int W, int g, int pad,
                      int aligned, int n_rows, int n_cols, int n_tiles,
-                     cudaStream_t stream) {
-  const int smem = M * W * static_cast<int>(sizeof(typename Blocks<Tag>::acc));
+                     cudaStream_t stream, PcgArgs pcg = {}) {
+  // kDirection stages two windows (Z and the old direction).
+  const int smem = (kPcg == kDirection ? 2 : 1) * M * W *
+                   static_cast<int>(sizeof(typename Blocks<Tag>::acc));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   // Above 48 KB dynamic shared memory must be enabled per kernel; remember
   // the largest size granted so the attribute is set once per size class.
   static int granted = 48 * 1024;
   if (smem > granted) {
-    cudaError_t err = cudaFuncSetAttribute(banded_tiles_kernel<Tag, M, kRound>,
+    cudaError_t err = cudaFuncSetAttribute(banded_tiles_kernel<Tag, M, kRound, kPcg>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
     if (err != cudaSuccess) return err;
     granted = smem;
   }
   if (n_rows == 0) return cudaSuccess;
-  // The largest of 4, 2, 1 warps that divides the warps of a row block.
-  int per_block = kWarpsPerBlock;
-  while ((R / kWarpRows) % per_block != 0) per_block /= 2;
-  const int warps = (n_rows + kWarpRows - 1) / kWarpRows;
-  const int blocks = (warps + per_block - 1) / per_block;
-  banded_tiles_kernel<Tag, M, kRound><<<blocks, 32 * per_block, smem, stream>>>(
-      tiles, offsets, cols, X, Y, R, W, g, pad, aligned, n_rows, n_cols, n_tiles);
+  const Grid grid = grid_of(R, n_rows);
+  banded_tiles_kernel<Tag, M, kRound, kPcg><<<grid.blocks, grid.threads, smem, stream>>>(
+      tiles, offsets, cols, X, Y, R, W, g, pad, aligned, n_rows, n_cols, n_tiles, pcg);
   return cudaGetLastError();
 }
 
@@ -380,7 +560,55 @@ cudaError_t launch(const void* tiles, const int* offsets, const int* cols,
   return cudaErrorInvalidValue;
 }
 
+template <int kPcg>
+cudaError_t launch_pcg(const float* tiles, const int* offsets, const int* cols,
+                       const float* X, float* Y, int R, int W, int g, int pad, int aligned,
+                       int n, int n_tiles, int m, const PcgArgs& pcg, cudaStream_t s) {
+  const uint4* t = reinterpret_cast<const uint4*>(tiles);
+  if (m == 1)
+    return launch_m<float, 1, false, kPcg>(t, offsets, cols, X, Y, R, W, g, pad, aligned,
+                                           n, n, n_tiles, s, pcg);
+  if (m == 2)
+    return launch_m<float, 2, false, kPcg>(t, offsets, cols, X, Y, R, W, g, pad, aligned,
+                                           n, n, n_tiles, s, pcg);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The PCG iteration's products (the header) on a square (n, n) operator of
+// f32 tiles, X and Y (n, m), m in {1, 2}.  mode 1 (residual): Y = B - A X.
+// mode 2 (direction): X is Z; P_new = Z + beta P_old (P_old null: P_new =
+// Z), Y = A P_new, pap[c * n_pap + block] the blocks' p.Ap partials, n_pap
+// the launch's blocks; beta from the n_rz r.z partials a column of rz and
+// rz_old.  Partials are [m][count].
+extern "C" int banded_pcg_f32(const float* tiles, const int* offsets, const int* cols,
+                              const float* X, float* Y, int B, int R, int W, int g,
+                              int pad, int aligned, int n, int n_tiles, int m, int mode,
+                              const float* Bvec, const float* P_old, float* P_new,
+                              const float* rz, const float* rz_old, int n_rz, float* pap,
+                              int n_pap, void* stream) {
+  constexpr int T = Blocks<float>::N * kVecPerRow;
+  if (B < 0 || R < kWarpRows || R % kWarpRows != 0 || W < T || W % T != 0 || g < 1 ||
+      pad < 0 || n < 1 || n > static_cast<long long>(B) * R || n_tiles < 0)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PcgArgs pcg{Bvec, P_old, P_new, rz, rz_old, pap, n_rz};
+  if (mode == kResidual) {
+    if (Bvec == nullptr) return cudaErrorInvalidValue;
+    return launch_pcg<kResidual>(tiles, offsets, cols, X, Y, R, W, g, pad, aligned, n,
+                                 n_tiles, m, pcg, s);
+  }
+  if (mode == kDirection) {
+    if (P_new == nullptr || pap == nullptr || n_pap != grid_of(R, n).blocks ||
+        (P_old != nullptr && (rz == nullptr || rz_old == nullptr || n_rz < 1)))
+      return cudaErrorInvalidValue;
+    return launch_pcg<kDirection>(tiles, offsets, cols, X, Y, R, W, g, pad, aligned, n,
+                                  n_tiles, m, pcg, s);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // tiles: (n_tiles, 32) packed f32 tiles; offsets (B*R + 1,) and cols
 // (n_tiles,) int32 (ops/banded.py BandTiles); X and Y f32.

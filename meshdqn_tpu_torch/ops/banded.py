@@ -38,6 +38,12 @@ tiles with 16-byte loads and reduces each row by a fixed shuffle tree, so
 results repeat bit for bit.  The blocks stay on the object: they are the
 JAX package's layout, bit for bit, and the input of the plain version.
 
+The PCG iteration's products (ops/cg.py pcg_fused) are two more instances
+of the same kernel: `banded_pcg_residual` (R = B - A X0, a solve's first
+product) and `banded_pcg_direction` (P = Z + beta P_old formed in the
+block's window, A P, and one p.Ap partial a block and column); see
+csrc/banded.cu.  They count as banded_matmat's launches.
+
 `banded_matmat(A, X)` takes the whole (frozen) BandedMatrix, so the tiles
 it reads and the blocks they came from cannot drift apart.  On CUDA
 tensors it launches the kernel or raises; on CPU tensors it uses the plain
@@ -89,6 +95,9 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [_c_void_p] * 5 + [_c_int] * 10 + [_c_void_p]
             fn.restype = _c_int
+        lib.banded_pcg_f32.argtypes = ([_c_void_p] * 5 + [_c_int] * 10 + [_c_void_p] * 5
+                                       + [_c_int, _c_void_p, _c_int, _c_void_p])
+        lib.banded_pcg_f32.restype = _c_int
         _LIB = lib
     return _LIB
 
@@ -300,6 +309,59 @@ def banded_matmat(A: "BandedMatrix", X: torch.Tensor) -> torch.Tensor:
     if A.blocks.dtype == torch.bfloat16:
         banded_matmat.bf16_launches += 1  # banded_matmat_bf16 (TPU kernel #6)
     return Y
+
+
+def product_blocks(A: "BandedMatrix") -> int:
+    """The blocks of one kernel launch on A (csrc/banded.cu grid_of): up to
+    4 warps of 8 rows, as many as divide a row block's warps."""
+    R = A.blocks.shape[1]
+    per_block = 4
+    while (R // WARP_ROWS) % per_block:
+        per_block //= 2
+    warps = -(-A.shape[0] // WARP_ROWS)
+    return -(-warps // per_block)
+
+
+_RESIDUAL, _DIRECTION = 1, 2  # csrc/banded.cu PcgMode
+
+
+def _ptr(t):
+    """t's data pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _pcg_launch(A, mode, X, Y, B=None, P_old=None, P_new=None, rz=None, rz_old=None,
+                pap=None):
+    """One launch of a PCG instance; the operands are checked by the
+    caller (ops/cg.py pcg_fused), the launch's shape by the C entry."""
+    t = A.tiles
+    n_b, R, W = A.blocks.shape
+    err = _lib().banded_pcg_f32(
+        t.values.data_ptr(), t.offsets.data_ptr(), t.cols.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), n_b, R, W, A.g, A.pad, int(A.aligned128), A.shape[0],
+        t.values.shape[0], X.shape[1], mode, _ptr(B), _ptr(P_old), _ptr(P_new), _ptr(rz),
+        _ptr(rz_old), 0 if rz is None else rz.shape[-1], _ptr(pap),
+        0 if pap is None else pap.shape[-1], torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"banded_pcg_f32 launch failed: cudaError_t {err}")
+    banded_matmat.launches += 1
+    count("banded.launches")
+
+
+def banded_pcg_residual(A: "BandedMatrix", B: torch.Tensor, X0: torch.Tensor,
+                        R: torch.Tensor) -> None:
+    """R = B - A @ X0 in one launch (a PCG solve's first product)."""
+    _pcg_launch(A, _RESIDUAL, X0, R, B=B)
+
+
+def banded_pcg_direction(A: "BandedMatrix", Z: torch.Tensor, P_old, P: torch.Tensor,
+                         AP: torch.Tensor, rz, rz_old, pap: torch.Tensor) -> None:
+    """In one launch: P = Z + beta P_old, beta = sum(rz) / sum(rz_old) per
+    column (0 where the latter is not positive; P = Z where P_old is None),
+    AP = A @ P, and pap (m, product_blocks(A)) the blocks' p.Ap partials.
+    rz and rz_old are (m, n_rz) r.z partials of the last two updates."""
+    _pcg_launch(A, _DIRECTION, Z, AP, P_old=P_old, P_new=P, rz=rz, rz_old=rz_old, pap=pap)
 
 
 banded_matmat.launches = 0  # every instance's launches

@@ -586,11 +586,13 @@ def _launch_counters():
     """The kernels' launch counters that a CG step can move, as (function,
     attribute) pairs."""
     from ..ops.banded import banded_matmat
+    from ..ops.cg import pcg_update
     from ..ops.convection import convection_vector
     from ..ops.sparse import ell_matmat
 
     return [(banded_matmat, "launches"), (banded_matmat, "bf16_launches"),
-            (ell_matmat, "launches"), (convection_vector, "launches")]
+            (ell_matmat, "launches"), (convection_vector, "launches"),
+            (pcg_update, "launches")]
 
 
 class CGStepGraph:

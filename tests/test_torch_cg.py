@@ -116,6 +116,62 @@ def test_pcg_zero_iterations_returns_x0():
     assert torch.equal(tcg.pcg(ta, td, torch.ones(10, 1, dtype=F64), X0, 0), X0)
 
 
+def _f32_banded_system(m, n=96):
+    """The production solve's operand types at a small size: a banded
+    operator of f32 blocks, an f32 BlockJacobi and (n, m) f32 B and X0."""
+    A = spd_banded(n)
+    rng = np.random.default_rng(4)
+    return (BandedMatrix.from_scipy(A, device="cpu", dtype=torch.float32, R=8),
+            tcg.block_jacobi_inv(A, nb=32, device="cpu", dtype=torch.float32),
+            torch.tensor(rng.standard_normal((n, m)), dtype=torch.float32),
+            torch.tensor(rng.standard_normal((n, m)), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_pcg_on_cpu_tensors_is_the_plain_path(m):
+    """The production operand types on CPU tensors take pcg_reference, bit
+    for bit, and neither the kernels nor the `pcg.fused` counter."""
+    from meshdqn_tpu_torch.ops import banded
+    from meshdqn_tpu_torch.utils import profiling
+
+    A, dinv, B, X0 = _f32_banded_system(m)
+    launches = (banded.banded_matmat.launches, tcg.pcg_update.launches)
+    profiling.take_trace()
+    profiling.trace_on()
+    try:
+        X = tcg.pcg(A, dinv, B, X0, 5)
+    finally:
+        profiling.trace_off()
+    _, counts = profiling.take_trace()
+    assert torch.equal(X, tcg.pcg_reference(A, dinv, B, X0, 5))
+    assert counts == {"pcg.products": 6}
+    assert (banded.banded_matmat.launches, tcg.pcg_update.launches) == launches
+
+
+@pytest.mark.parametrize("case", ["bf16_blocks", "jacobi_diagonal", "m3", "cpu_tensors"])
+def test_pcg_fused_rejects_what_its_kernels_do_not_take(case):
+    """pcg_fused raises on each operand its kernels do not take, before any
+    launch; the CPU tensors are the last thing it checks, so every other
+    case raises for its own reason here."""
+    from meshdqn_tpu_torch.ops import banded
+
+    A, dinv, B, X0 = _f32_banded_system(3 if case == "m3" else 1)
+    if case == "bf16_blocks":
+        A = BandedMatrix.from_scipy(spd_banded(96), device="cpu", dtype=torch.bfloat16, R=8)
+        err, match = TypeError, "f32 blocks"
+    elif case == "jacobi_diagonal":
+        dinv = torch.ones(96)
+        err, match = TypeError, "BlockJacobi"
+    elif case == "m3":
+        err, match = ValueError, "m in"
+    else:
+        err, match = ValueError, "CUDA device"
+    launches = (banded.banded_matmat.launches, tcg.pcg_update.launches)
+    with pytest.raises(err, match=match):
+        tcg.pcg_fused(A, dinv, B, X0, 3)
+    assert (banded.banded_matmat.launches, tcg.pcg_update.launches) == launches
+
+
 def test_convection_dof_perm_matches_jax():
     """The banded CG layout's interleaved RCM dof order, on the ys930 pack
     mesh: the kernel consumes and produces vectors in the new layout."""

@@ -1018,9 +1018,10 @@ def test_bf16_cg_step_launches(cuda):
 @pytest.mark.cuda
 def test_cg_step_counts_and_kernel_names_at_the_finest_ys930_step(cuda):
     """The benchmark's CG cell on the card (f32 config of _bf16_config with
-    f32 blocks): with tracing on, a step counts 18 `banded.launches` and 13
-    `pcg.products`, and the banded and ELL kernels' device events carry
-    the names that portbench reads from the `__global__` lines, so
+    f32 blocks): with tracing on, a step counts 18 `banded.launches`, 13
+    `pcg.products` and 2 `pcg.fused` (both PCG solves on the kernels), and
+    the banded, ELL and PCG update kernels' device events carry the names
+    that portbench reads from the `__global__` lines, so
     `torch_ops_device_ms_per_step` does not count them as torch ops."""
     import dataclasses
     import pathlib
@@ -1047,13 +1048,14 @@ def test_cg_step_counts_and_kernel_names_at_the_finest_ys930_step(cuda):
     assert counts["steps"] == steps
     assert counts["banded.launches"] == 18 * steps
     assert counts["pcg.products"] == 13 * steps
+    assert counts["pcg.fused"] == 2 * steps
     assert torch.isfinite(d).all() and torch.isfinite(l).all()
     names = port_kernels(pathlib.Path(__file__).resolve().parents[1])
-    assert {"banded_tiles_kernel", "ell_kernel"} <= names
+    assert {"banded_tiles_kernel", "ell_kernel", "pcg_update_kernel"} <= names
     from torch.autograd import DeviceType
 
     device_events = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    for kernel in ("banded_tiles_kernel", "ell_kernel"):
+    for kernel in ("banded_tiles_kernel", "ell_kernel", "pcg_update_kernel"):
         assert any(is_kernel(name, kernel) for name in device_events), kernel
 
 
@@ -1110,6 +1112,125 @@ def test_cg_step_graph_equals_the_python_step(cuda, layout):
     for a, b, c in zip(eager, graph, again):
         assert torch.equal(a, b) and torch.equal(b, c)
     assert torch.isfinite(graph[0]).all()
+
+
+# --------------------------------------------------------------------------
+# The fused PCG (ops/cg.py pcg_fused: csrc/banded.cu's PCG instances of
+# banded_tiles_kernel and csrc/pcg.cu's pcg_update_kernel) on the benchmark's
+# CG mesh (the finest ys930 row): its A1 (29,768 rows, m = 1) and A3 (14,884
+# rows, m = 2), blocks of 128, so the last block-Jacobi block is ragged in
+# both (72 and 36 rows).  The yardstick is pcg in f64 on the CPU.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _finest_cg_matrices():
+    import dataclasses
+
+    from meshdqn_tpu_torch.solver.ipcs import cg_matrices
+
+    cfg = dataclasses.replace(_bf16_config(), cg_banded_dtype="f32")
+    return cg_matrices(_finest_ys930(), cfg)["matrices"]
+
+
+def _pcg_case(cuda, op, m, nb=128):
+    """The f32 operator and BlockJacobi of `op` on the card and in f64 on
+    the CPU, and a seeded (B, X0): B the image of a random X, X0 a tenth of
+    another, so the solve moves X by ~10x its start."""
+    from meshdqn_tpu_torch.ops import cg
+    from meshdqn_tpu_torch.ops.banded import BandedMatrix
+
+    A = _finest_cg_matrices()[op]
+    n = A.shape[0]
+    g = torch.Generator().manual_seed(n + m)
+    X0 = 0.1 * torch.randn(n, m, generator=g)
+    B = torch.tensor(A @ torch.randn(n, m, generator=g).double().numpy()).float()
+    return (BandedMatrix.from_scipy(A, device=cuda), cg.block_jacobi_inv(A, nb, device=cuda),
+            BandedMatrix.from_scipy(A, device="cpu", dtype=torch.float64),
+            cg.block_jacobi_inv(A, nb, device="cpu", dtype=torch.float64), B, X0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,m,iters", [("A1bc", 1, 6), ("A1bc", 1, 30), ("A3bc_s", 2, 5)])
+def test_fused_pcg_against_the_plain_path_and_f64(cuda, op, m, iters):
+    """pcg routes the production operands to the kernels: 1 + iters launches
+    of each, the same bits in two calls, and a gap to the f64 solve within
+    twice pcg_reference's on the card, over all rows and over the ragged
+    last block's.  Both are f32 PCG with the same guards and products; they
+    differ by the order of their sums (dots, block-Jacobi products), whose
+    rounding the iterations carry on, so the two gaps are of one size (the
+    kernels' read 0.99-1.04 times the plain path's on an H100)."""
+    from meshdqn_tpu_torch.ops import banded as bd
+    from meshdqn_tpu_torch.ops import cg
+
+    A, dinv, A64, dinv64, B, X0 = _pcg_case(cuda, op, m)
+    Bc, X0c = B.to(cuda), X0.to(cuda)
+    before = (bd.banded_matmat.launches, cg.pcg_update.launches)
+    X = cg.pcg(A, dinv, Bc, X0c, iters)
+    made = (bd.banded_matmat.launches - before[0], cg.pcg_update.launches - before[1])
+    assert made == (1 + iters, 1 + iters)
+    assert torch.equal(X, cg.pcg(A, dinv, Bc, X0c, iters))
+    Xr = cg.pcg_reference(A, dinv, Bc, X0c, iters)
+    X64 = cg.pcg(A64, dinv64, B.double(), X0.double(), iters)
+    assert torch.isfinite(X).all()
+    gap = lambda Y, rows=slice(None): mv.relative_gap(  # noqa: E731
+        Y.double().cpu()[rows], X64[rows])
+    tail = slice((A.shape[0] // 128) * 128, A.shape[0])
+    for rows in (slice(None), tail):
+        assert gap(X, rows) <= 2 * gap(Xr, rows), (rows, gap(X, rows), gap(Xr, rows))
+    assert mv.relative_gap(X64, X0.double()) > 1  # the solve moved X
+
+
+@pytest.mark.cuda
+def test_fused_pcg_keeps_a_converged_column(cuda):
+    """A column whose residual is exactly zero (B = A X0 by the same
+    product) stays at X0 bit for bit through the guards, with no NaN in
+    either column; B = X0 = 0 gives X = 0."""
+    from meshdqn_tpu_torch.ops import cg
+
+    A, dinv, _, _, B, X0 = _pcg_case(cuda, "A3bc_s", 2)
+    Bc, X0c = B.to(cuda), X0.to(cuda)
+    Bc[:, 1] = (A @ X0c)[:, 1]
+    X = cg.pcg(A, dinv, Bc, X0c, 5)
+    assert torch.isfinite(X).all() and torch.equal(X[:, 1], X0c[:, 1])
+    assert not torch.equal(X[:, 0], X0c[:, 0])
+    A1, d1, _, _, B1, _ = _pcg_case(cuda, "A1bc", 1)
+    zero = torch.zeros_like(B1, device=cuda)
+    assert torch.equal(cg.pcg(A1, d1, zero, zero, 6), zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [128, 45])
+@pytest.mark.parametrize("op,m", [("A1bc", 1), ("A3bc_s", 2)])
+def test_pcg_update_block_jacobi_at_the_ragged_block(cuda, op, m, nb):
+    """pcg_update_kernel's start (Z = M^-1 R, the r.z partials) against the
+    f64 block-Jacobi product on the CPU, over all rows and over the ragged
+    last block's: within gap_tolerance of a row's nb terms, as torch.bmm on
+    the card is; nb = 45 takes the kernel's 4-byte copies of the blocks.
+    The r.z partials sum to R.Z within f32 rounding of the blocks' sums."""
+    from meshdqn_tpu_torch.ops import cg
+
+    A = _finest_cg_matrices()[op]
+    n = A.shape[0]
+    dinv = cg.block_jacobi_inv(A, nb, device=cuda)
+    dinv64 = cg.block_jacobi_inv(A, nb, device="cpu", dtype=torch.float64)
+    R = torch.randn(n, m, generator=torch.Generator().manual_seed(nb)).to(cuda)
+    Z = torch.empty_like(R)
+    rz = torch.empty(m, cg.update_partials(dinv), device=cuda)
+    before = cg.pcg_update.launches
+    cg.pcg_update(dinv, None, None, None, None, R, None, Z, None, None, rz, update=False,
+                  precondition=True)
+    assert cg.pcg_update.launches == before + 1
+    Z64 = dinv64.apply(R.double().cpu())
+    tol = mv.gap_tolerance(nb, torch.float32)
+    tail = slice((n // nb) * nb, n)
+    assert n % nb
+    for rows in (slice(None), tail):
+        assert mv.relative_gap(Z.double().cpu()[rows], Z64[rows]) <= tol, rows
+        assert mv.relative_gap(dinv.apply(R).double().cpu()[rows], Z64[rows]) <= tol, rows
+    rz64 = (R.double().cpu() * Z64).sum(dim=0)
+    assert ((rz.double().sum(dim=1).cpu() - rz64).abs() / rz64.abs()).max() <= \
+        mv.gap_tolerance(n, torch.float32)
 
 
 # --------------------------------------------------------------------------
